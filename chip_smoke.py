@@ -1,0 +1,498 @@
+#!/usr/bin/env python3
+"""GPU smoke test of the PyTorch port (gie_mapping_tpu_torch) on one card.
+
+    python3 chip_smoke.py [--out DIR] [--profile]
+
+Phases, one JSON line each; any failure exits non-zero:
+  1. device   - a CUDA card is required (there is no CPU path); prints its
+                name and power limit as nvidia-smi reports them.
+  2. build    - compiles the CUDA kernels (csrc/) with nvcc.
+  3. kernels  - each kernel against its plain PyTorch version on the card, at
+                the slice's shapes and at random ones (ties, empty lanes):
+                phase 1 and both envelopes bitwise; batch_edt / batch_edt_slab
+                bitwise against the plain chain; the carve within 0.01 % of
+                window voxels.  Times each kernel and its plain version.
+  4. slice    - the cow-lady point-cloud frame through
+                VolumetricMapper.process_pointcloud at full size (152x152x80
+                canvas, 131072 points per frame, 12 frames); every kernel
+                must have launched; the final canvas EDT must equal scipy's
+                exactly; the run must agree with the JAX package's results
+                (tests/fixtures/torch_port_cow_ref.npz).
+  5. profile  - only with --profile: torch.profiler over a second slice run.
+Then one line with every kernel's launches, error and times, the card's
+nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+REF = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_ref.npz")
+LOG: list = []
+CARVE_TOL = 1e-4  # fraction of window voxels the carve may disagree on
+
+
+def emit(obj):
+    line = json.dumps(obj)
+    LOG.append(line)
+    print(line, flush=True)
+
+
+class PhaseError(RuntimeError):
+    pass
+
+
+def require(cond, phase, msg):
+    if not cond:
+        raise PhaseError(f"{phase}: {msg}")
+
+
+def cuda_ms(fn, reps, warm=2):
+    """Mean device time of fn() over `reps` back-to-back calls (CUDA events)."""
+    import torch
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    s.record()
+    for _ in range(reps):
+        fn()
+    e.record()
+    torch.cuda.synchronize()
+    return s.elapsed_time(e) / reps
+
+
+def nvidia_smi_line() -> str:
+    try:
+        r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True, timeout=60)
+        return r.stdout.strip().splitlines()[0] if r.stdout.strip() else \
+            f"nvidia-smi: no output (rc {r.returncode})"
+    except (OSError, subprocess.SubprocessError) as exc:
+        return f"nvidia-smi unavailable: {exc}"
+
+
+# ---------------------------------------------------------------------------
+def random_canvas(shape, frac, seed, device):
+    """int8 type canvas: OCCUPIED with probability frac, else FREE/UNKNOWN."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = np.where(rng.random(shape) < frac, 2,
+                 rng.integers(0, 2, shape)).astype(np.int8)
+    return torch.from_numpy(t).to(device)
+
+
+def world_canvas(device):
+    """Slice-shaped [152, 152, 80] canvas whose sites are the corridor
+    world's boxes and walls sampled at 0.1 m (realistic site structure)."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
+
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
+    X, Y, Z = 152, 152, 80
+    g = np.stack(np.meshgrid(np.arange(X), np.arange(Y), np.arange(Z),
+                             indexing="ij"), -1).astype(np.float32)
+    pos = (g - [76, 76, 20]) * 0.1
+    occ = world.occupied(pos.reshape(-1, 3)).reshape(X, Y, Z)
+    t = np.where(occ, 2, 1).astype(np.int8)
+    t[:, :, :8] = 0  # unknown layers: x-lanes and z-columns without a site
+    return torch.from_numpy(t).to(device)
+
+
+def tie_packed(N, L, yb, device):
+    """Phase-1 words with many equal-cost sites per lane (distance ties),
+    and every 7th lane without a site."""
+    import torch
+
+    w = torch.zeros(N, L, dtype=torch.int32)
+    for l in range(L):
+        if l % 7 == 0:
+            continue
+        step = 2 + l % 5
+        for i in range(l % 3, N, step):
+            g1sq = (l % 4) ** 2
+            w[i, l] = (g1sq << (yb + 1)) | ((l % 50) << 1) | 1
+    return w.to(device)
+
+
+def phase_kernels(dev, results):
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.ops import edt_batch as eb
+    from gie_mapping_tpu_torch.ops import raycast as rcm
+    from gie_mapping_tpu_torch.ops.kernels import carve as kc
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+    from gie_mapping_tpu_torch.models.pipeline import _slab_menu
+    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    ph = "kernels"
+    X, Y, Z = 152, 152, 80
+    mw = X + Y + Z
+    yb = kp.phase1_pack_bits(Y)
+
+    # ---- phase 1 ------------------------------------------------------------
+    canvases = [world_canvas(dev), random_canvas((X, Y, Z), 0.02, 1, dev),
+                random_canvas((X, Y, Z), 0.3, 2, dev),
+                random_canvas((37, 41, 29), 0.05, 3, dev),
+                torch.zeros((16, 24, 8), dtype=torch.int8, device=dev)]
+    p1_bad = 0
+    for t in canvases:
+        k = kp.phase1_packed(t, sum(t.shape))
+        p = kp.phase1_packed_plain(t, sum(t.shape))
+        p1_bad += int((k != p).sum())
+    # the p1-cache patch: a launch on an x-slab view of a larger buffer
+    full = kp.phase1_packed_plain(canvases[0], mw)
+    for fx, o in ((32, 0), (48, 40), (64, 88), (96, 56)):
+        buf = torch.zeros_like(full)
+        kp.phase1_packed(canvases[0][o:o + fx], mw, out=buf[o:o + fx])
+        p1_bad += int((buf[o:o + fx] != full[o:o + fx]).sum())
+        p1_bad += int(buf[:o].abs().sum() + buf[o + fx:].abs().sum())
+    torch.cuda.synchronize()
+    require(p1_bad == 0, ph, f"phase1 differs from its plain version in {p1_bad} voxels")
+    t_canvas = canvases[0]
+    results["phase1"] = dict(
+        max_abs_err=0, ms=cuda_ms(lambda: kp.phase1_packed(t_canvas, mw), 50),
+        plain_ms=cuda_ms(lambda: kp.phase1_packed_plain(t_canvas, mw), 10))
+
+    # ---- envelopes ------------------------------------------------------------
+    env_bad = {"packed": 0, "mid": 0}
+    err = {"packed": 0, "mid": 0}
+    cases = []
+    for t in canvases[:4]:
+        w = kp.phase1_packed_plain(t, sum(t.shape)).permute(0, 2, 1).contiguous()
+        cases.append((w, kp.phase1_pack_bits(t.shape[1])))
+    cases.append((tie_packed(50, 300, 6, dev), 6))
+    for w, ybw in cases:
+        kk, kpay = ke.envelope_packed(w, ybw)
+        pk, ppay = ke.envelope_packed_plain(w, ybw)
+        sited = ((w & 1) > 0).any(0, keepdim=True).expand_as(w)
+        env_bad["packed"] += int(((kk != pk) | (kpay != ppay))[sited].sum())
+        err["packed"] = max(err["packed"], int((kk - pk).abs()[sited].max()))
+    # phase-3 inputs as the chain builds them, plus random / tie cases
+    mids = []
+    for t in canvases[:3]:
+        w = kp.phase1_packed_plain(t, sum(t.shape)).permute(0, 2, 1).contiguous()
+        pk, ppay = ke.envelope_packed_plain(w, kp.phase1_pack_bits(t.shape[1]))
+        ib2 = ke.env_idx_bits(t.shape[0])
+        d2m = torch.where((ppay & 1) > 0, pk >> ib2, 1 << 28)
+        mids.append((d2m, ((pk & ((1 << ib2) - 1)) << 11) | ppay))
+    g = torch.Generator().manual_seed(5)
+    f = torch.randint(0, 400, (7, 33, 65), generator=g, dtype=torch.int32)
+    f[:, :, ::5] = 1 << 28                      # lanes without a site
+    f[:, ::3, 1::5] = 9                          # equal costs: ties
+    pay = torch.randint(0, 1 << 20, f.shape, generator=g, dtype=torch.int32) | 1
+    mids.append((f.to(dev), pay.to(dev)))
+    for f, pay in mids:
+        kk, kpay = ke.envelope_mid(f, pay)
+        pk, ppay = ke.envelope_mid_plain(f, pay)
+        sited = (f < (1 << 28)).any(1, keepdim=True).expand_as(f)
+        env_bad["mid"] += int(((kk != pk) | (kpay != ppay))[sited].sum())
+        err["mid"] = max(err["mid"], int((kk - pk).abs()[sited].max()))
+    torch.cuda.synchronize()
+    require(env_bad["packed"] == 0 and env_bad["mid"] == 0, ph,
+            f"envelopes differ from their plain versions on sited lanes: {env_bad}")
+    w0 = cases[0][0]
+    d0, p0 = mids[0]
+    results["envelope_packed"] = dict(
+        max_abs_err=err["packed"], ms=cuda_ms(lambda: ke.envelope_packed(w0, yb), 20),
+        plain_ms=cuda_ms(lambda: ke.envelope_packed_plain(w0, yb), 3, warm=1))
+    results["envelope_mid"] = dict(
+        max_abs_err=err["mid"], ms=cuda_ms(lambda: ke.envelope_mid(d0, p0), 20),
+        plain_ms=cuda_ms(lambda: ke.envelope_mid_plain(d0, p0), 3, warm=1))
+
+    # ---- batch_edt / batch_edt_slab (kernel chain vs plain chain on CPU) ------
+    edt_bad = 0
+    for t in canvases[:4]:
+        ref = eb.batch_edt(t.cpu(), sum(t.shape))
+        got = eb.batch_edt(t, sum(t.shape))
+        edt_bad += sum(int((got[k].cpu() != ref[k]).sum()) for k in ref)
+    t = canvases[0]
+    p1c = kp.phase1_packed(t, mw)
+    p1c_cpu = p1c.cpu()
+    ref_full = eb.batch_edt(t.cpu(), mw)
+    for sx, sy in _slab_menu((X, Y, Z)):
+        for x0, y0 in ((0, 0), (X - sx, Y - sy), (40, 24)):
+            for p1 in (None, p1c):
+                got = eb.batch_edt_slab(t, x0, y0, sx=sx, sy=sy, max_width=mw,
+                                        p1_packed=p1)
+                ref = eb.batch_edt_slab(t.cpu(), x0, y0, sx=sx, sy=sy,
+                                        max_width=mw,
+                                        p1_packed=None if p1 is None else p1c_cpu)
+                edt_bad += sum(int((got[k].cpu() != ref[k]).sum()) for k in ref)
+                edt_bad += int((ref["dist_sq"] != ref_full["dist_sq"][
+                    x0:x0 + sx, y0:y0 + sy]).sum())
+    require(edt_bad == 0, ph, f"batch_edt chain differs in {edt_bad} values")
+
+    # ---- carve ---------------------------------------------------------------
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
+    local = (100, 100, 30)
+    nt, npp = rcm.panorama_bins(local)
+    carve_bad, n_vox, carve_err = 0, 0, 0
+    carve_args = None
+    for seed, (pos, yaw) in enumerate((((0.0, 0.0, 1.2), 0.0),
+                                      ((0.37, -0.81, 1.13), 0.7),
+                                      ((-1.05, 0.55, 0.9), 2.1))):
+        proj = geo.Projection.from_pose(
+            np.asarray(pos, np.float32), (np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)))
+        pts = world.pointcloud(proj, n_rays=131072, max_range=8.0, seed=seed)
+        world_pts = proj.to(dev).l2g(torch.from_numpy(pts).to(dev))
+        valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+        origin = np.asarray(pos, np.float32)
+        pvt = geo.calculate_pivot(origin, 0.1, local)
+        kw = dict(local_size=local, voxel_width=0.1, n_theta=nt, n_phi=npp,
+                  for_motion_planner=bool(seed % 2), robot_r2_grids=16)
+        ep = rcm.endpoint_counts(world_pts, valid, pvt, local_size=local,
+                                 voxel_width=0.1, ogm_min_h=0.0, ogm_max_h=2.5)
+        depth, cnt = rcm.panorama(world_pts, valid, origin, n_theta=nt,
+                                  n_phi=npp, local_size=local, voxel_width=0.1)
+        ki, kr = kc.carve(depth, cnt, ep, pvt, origin, **kw)
+        pi_, pr = kc.carve_plain(depth, cnt, ep, pvt, origin, **kw)
+        carve_bad += int(((ki != pi_) | (kr != pr)).sum())
+        carve_err = max(carve_err, int((kr - pr).abs().max()))
+        n_vox += ki.numel()
+        if carve_args is None:
+            carve_args = (depth, cnt, ep, pvt, origin, kw)
+    torch.cuda.synchronize()
+    emit({"phase": ph, "carve_mismatch_voxels": carve_bad,
+          "carve_window_voxels": n_vox})
+    require(carve_bad <= CARVE_TOL * n_vox, ph,
+            f"carve differs in {carve_bad} of {n_vox} voxels")
+    depth, cnt, ep, pvt, origin, kw = carve_args
+    results["carve"] = dict(
+        max_abs_err=carve_err,
+        ms=cuda_ms(lambda: kc.carve(depth, cnt, ep, pvt, origin, **kw), 50),
+        plain_ms=cuda_ms(lambda: kc.carve_plain(depth, cnt, ep, pvt, origin, **kw), 5))
+    emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
+          "edt_bad": edt_bad,
+          "ms": {k: round(v["ms"], 4) for k, v in results.items()},
+          "plain_ms": {k: round(v["plain_ms"], 4) for k, v in results.items()}})
+    return carve_bad
+
+
+def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
+    """Drive the slice through VolumetricMapper.process_pointcloud; the
+    launch counters of `wrappers` are zeroed right before the first frame,
+    and `loop_ctx` (a context manager) wraps the frame loop alone.
+    Returns (mapper, per-frame records)."""
+    import contextlib
+
+    import torch
+
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.runtime.datasets import cow_lady_slice
+    from gie_mapping_tpu_torch.utils.config import cow_lady_config
+
+    overrides, _, _ = cow_lady_slice()
+    mapper = VolumetricMapper(cow_lady_config(**overrides), device=dev)
+    mapper.warmup(robot_pos=poses[0][0])
+    staged = [mapper.stage_pointcloud(p) for p in frames]
+    torch.cuda.synchronize()
+    for w in wrappers:
+        w.launches = 0
+    recs = []
+    with loop_ctx or contextlib.nullcontext():
+        _frames(mapper, poses, staged, recs)
+    return mapper, recs
+
+
+def _frames(mapper, poses, staged, recs):
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    for i, ((pos, quat), (pts, val)) in enumerate(zip(poses, staged)):
+        proj = geo.Projection.from_pose(pos, quat)
+        s = torch.cuda.Event(enable_timing=True)
+        e = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        s.record()
+        out = mapper.process_pointcloud(proj, pts, val)
+        e.record()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+        gt = out.glb_type
+        recs.append(dict(
+            frame=i, gate_level=int(out.gate_level),
+            occupied=int((gt == 2).sum()), frontier=int((gt == 3).sum()),
+            ms=s.elapsed_time(e), wall_ms=wall,
+            gate_sync_ms=float(out.gate_sync_ms),
+            origin=[int(v) for v in mapper._origin],
+            type_counts=np.bincount(gt.astype(np.int64).ravel(), minlength=4)[:4].tolist(),
+            out_sha=output_digest(gt, out.dist_sq, out.coc)))
+
+
+def phase_slice(dev, carve_bad):
+    import numpy as np
+    from scipy import ndimage
+
+    from gie_mapping_tpu_torch.map_state import state_digest, state_to_numpy
+    from gie_mapping_tpu_torch.ops.kernels import carve as kc
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_slice)
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    ph = "slice"
+    ref = np.load(REF)
+    _, world, poses = cow_lady_slice()
+    frames = [world.pointcloud(geo.Projection.from_pose(*p),
+                               n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(poses)]
+    wrappers = {"phase1": kp.phase1_packed, "envelope_packed": ke.envelope_packed,
+                "envelope_mid": ke.envelope_mid, "carve": kc.carve}
+    mapper, recs = run_slice(dev, frames, poses, wrappers.values())
+    launches = {k: w.launches for k, w in wrappers.items()}
+    for r in recs:
+        emit({"phase": ph, **{k: (round(v, 4) if isinstance(v, float) else v)
+                             for k, v in r.items() if k != "out_sha"}})
+    require(all(v > 0 for v in launches.values()), ph,
+            f"a kernel of the path never launched: {launches}")
+
+    # final canvas EDT against scipy on observed voxels with a valid pair
+    st = state_to_numpy(mapper.state)
+    occ = st["vox_type"] == 2
+    require(occ.any(), ph, "the final canvas holds no site")
+    sq = np.rint(ndimage.distance_transform_edt(~occ) ** 2).astype(np.int64)
+    chk = (st["vox_type"] != 0) & (st["dist_sq"] != 999_999)
+    edt_bad = int((st["dist_sq"][chk] != sq[chk]).sum())
+    require(edt_bad == 0, ph, f"canvas dist_sq differs from scipy at {edt_bad} voxels")
+
+    # agreement with the JAX package's results on the same slice
+    n_win = int(np.prod(mapper.cfg.local_size))
+    origins_ok = all(r["origin"] == ref["origin"][i].tolist()
+                     for i, r in enumerate(recs))
+    tdiff = max(int(np.abs(np.asarray(r["type_counts"]) - ref["type_counts"][i]).max())
+                for i, r in enumerate(recs))
+    out_match = sum(r["out_sha"] == str(ref["out_sha"][i]) for i, r in enumerate(recs))
+    gates_match = [r["gate_level"] for r in recs] == ref["gate_level"].tolist()
+    sha_ok = state_digest(st) == str(ref["state_sha"])
+    emit({"phase": ph, "ok": True, "launches": launches, "scipy_mismatch": edt_bad,
+          "origins_match": origins_ok, "type_count_max_diff": tdiff,
+          "gate_levels_match": gates_match, "frames_bitwise": out_match,
+          "state_sha_match": sha_ok,
+          "ms_per_frame_mean_after_first": round(float(np.mean([r["ms"] for r in recs[1:]])), 4)})
+    require(origins_ok, ph, "canvas origins differ from the JAX reference")
+    require(tdiff <= CARVE_TOL * n_win, ph,
+            f"voxel type counts differ from the JAX reference by {tdiff}")
+    if carve_bad == 0:
+        require(sha_ok, ph, "final state differs from the JAX reference")
+    return launches, frames, poses
+
+
+def phase_profile(dev, frames, poses, out_dir=None):
+    """torch.profiler over the frame loop of a second slice run: device
+    time by kernel, launches, and the device's idle share of the loop."""
+    from torch.profiler import ProfilerActivity, profile
+
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, recs = run_slice(dev, frames, poses, loop_ctx=prof)
+    loop_ms = sum(r["wall_ms"] for r in recs)
+    rows, dev_total, launches = [], 0.0, 0
+    for ev in prof.key_averages():
+        t = getattr(ev, "self_device_time_total", 0.0)
+        if t > 0 and ev.device_type.name == "CUDA":
+            rows.append((t / 1e3, ev.key, ev.count))
+            dev_total += t / 1e3
+            launches += ev.count
+    rows.sort(reverse=True)
+    if out_dir:
+        os.makedirs(out_dir, exist_ok=True)
+        prof.export_chrome_trace(os.path.join(out_dir, "slice_trace.json"))
+    emit({"phase": "profile", "frames": len(recs),
+          "loop_wall_ms": round(loop_ms, 3),
+          "device_busy_ms": round(dev_total, 3),
+          "device_idle_share": round(1 - dev_total / loop_ms, 4) if loop_ms else None,
+          "device_launches": launches,
+          "top": [{"name": k[:70], "ms": round(t, 3), "count": c}
+                  for t, k, c in rows[:30]]})
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--out", help="also write the JSON lines and the build log here")
+    ap.add_argument("--profile", action="store_true",
+                    help="add a torch.profiler pass over a second slice run")
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's GPU path cannot run",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, ROOT)
+    try:
+        from gie_mapping_tpu_torch.ops.kernels import _build
+    except ImportError as exc:
+        print(f"chip_smoke: the port package is missing: {exc}", file=sys.stderr)
+        return 3
+    dev = torch.device("cuda", 0)
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    emit({"phase": "device", "ok": True, "name": name, "nvidia_smi": smi,
+          "count": torch.cuda.device_count(), "torch": torch.__version__,
+          "cuda": torch.version.cuda})
+    t0 = time.time()
+    try:
+        so, build_s = _build.build()
+        _build.library()
+        emit({"phase": "build", "ok": True, "seconds": round(build_s, 3),
+              "library": os.path.relpath(so, ROOT)})
+        results: dict = {}
+        carve_bad = phase_kernels(dev, results)
+        launches, frames, poses = phase_slice(dev, carve_bad)
+        if args.profile:
+            phase_profile(dev, frames, poses, args.out)
+    except PhaseError as exc:
+        emit({"ok": False, "error": str(exc)})
+        return 1
+    finally:
+        if args.out:
+            os.makedirs(args.out, exist_ok=True)
+            with open(os.path.join(args.out, "chip_smoke.jsonl"), "w") as f:
+                f.write("\n".join(LOG) + "\n")
+            log = _build.library_path().with_suffix(".log")
+            if log.exists():
+                with open(os.path.join(args.out, "nvcc_build.log"), "w") as f:
+                    f.write(log.read_text())
+    meta = {
+        "phase1": ("csrc/phase1.cu", "gie_mapping_tpu/ops/pallas/phase1.py:90"),
+        "envelope_packed": ("csrc/envelope.cu",
+                            "gie_mapping_tpu/ops/pallas/envelope.py:739"),
+        "envelope_mid": ("csrc/envelope.cu",
+                         "gie_mapping_tpu/ops/pallas/envelope.py:719"),
+        "carve": ("csrc/carve.cu", "gie_mapping_tpu/ops/pallas/carve.py:89"),
+    }
+    emit({"kernels": [
+        {"name": k, "route": "cuda", "source": "gie_mapping_tpu_torch/" + src,
+         "replaces": rep, "launches": launches[k],
+         "max_abs_err": results[k]["max_abs_err"], "ms": results[k]["ms"],
+         "plain_ms": results[k]["plain_ms"]}
+        for k, (src, rep) in meta.items()]})
+    emit({"phase": "done", "seconds": round(time.time() - t0, 3)})
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,28 @@
+"""PyTorch + CUDA port of the GIE mapping engine (for one NVIDIA H100).
+
+The JAX package `gie_mapping_tpu` beside it stays the reference: every
+module here names its counterpart there, and tests/test_torch_*.py hold the
+two bit for bit on the CPU.  This package imports PyTorch and never JAX.
+
+Layer map:
+  models/    VolumetricMapper (process_pointcloud) and the per-frame merge
+  ops/       sensor model, fusion, EDT chain, frontiers
+  ops/kernels/  wrappers of the hand-written CUDA kernels in csrc/, each
+             beside its plain PyTorch version (used for CPU tensors)
+  map_state  canvas + archive state, fresh-map placement
+  runtime/   synthetic worlds (numpy)
+  utils/     config, geometry, constants
+"""
+
+from .utils import constants
+from .utils.config import PRESETS, MapConfig, load_config
+
+__version__ = "0.1.0"
+
+
+def create_mapper(case: str = "cow_lady", device=None, **overrides):
+    """One-call engine construction for a case preset on `device`
+    ("cuda", "cpu", a torch.device; default CPU)."""
+    from .models.mapper import VolumetricMapper
+
+    return VolumetricMapper(load_config(case, **overrides), device=device)

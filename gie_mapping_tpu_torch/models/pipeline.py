@@ -1,0 +1,451 @@
+"""The per-frame map update of the PyTorch port (canvas_edt merge).
+
+Counterpart of gie_mapping_tpu/models/pipeline.py: block allocation,
+occupancy fusion, the change-gated exact canvas EDT (`_gated_canvas_merge`,
+with its slab menu, block P-test, phase-1 cache and zero-site constant
+fill), the ungated full EDT below `edt_gate_min_vox`, frontier marking and
+changed-block tracking.  Every output is bit-identical to the JAX package's.
+
+Where the JAX package chooses a branch on the device (`lax.switch` over the
+EDT slab menu and over the phase-1 patch size), the port reads the choice
+back once per frame and runs the chosen branch: the branches have different
+static slab shapes.  That is one small device-to-host copy and a host sync
+per frame.
+
+Window offsets, pivots and origins are host integers (numpy), as the JAX
+mapper computes them; every crop is a plain slice.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import numpy as np
+import torch
+
+from ..map_state import COC_INVALID16, MapState
+from ..ops.edt_batch import batch_edt, batch_edt_slab
+from ..ops.fusion import _fence_mask, _lowpass
+from ..ops.kernels.phase1 import phase1_fits, phase1_packed
+from ..ops.wave import mark_frontiers
+from ..utils import constants as _c
+from ..utils import geometry as geo
+from ..utils.config import MapConfig
+from ..utils.floats import sqrt_f32, true_div
+from ..utils.constants import (EMPTY_VALUE, VB_WIDTH, VOX_FNT, VOX_FREE,
+                               VOX_OCCUPIED, VOX_UNKNOWN)
+
+DEFAULT_MENU_FRACS = ((3, 16), (5, 16), (3, 8), (5, 8))
+INV16 = int(COC_INVALID16)
+
+
+def _slab_menu(canvas_size, fracs=DEFAULT_MENU_FRACS):
+    """Static (SX, SY) slab-size ladder for the change-gated EDT (multiples
+    of 8, ascending, each strictly smaller than the canvas)."""
+    X, Y, _ = canvas_size
+    r8 = lambda v, n: min(-(-v // 8) * 8, n)
+    menu = []
+    for num, den in fracs:
+        sx, sy = r8(X * num // den, X), r8(Y * num // den, Y)
+        if (sx, sy) not in menu and sx < X and sy < Y:
+            menu.append((sx, sy))
+    return menu
+
+
+def _menu_fracs(cfg):
+    return cfg.edt_gate_menu or DEFAULT_MENU_FRACS
+
+
+def gate_enabled(cfg) -> bool:
+    """Whether this config runs the change-gated EDT (else one full EDT)."""
+    X, Y, Z = cfg.canvas_size
+    return (cfg.merge_mode == "canvas_edt" and cfg.edt_gate and Z > 1
+            and bool(_slab_menu(cfg.canvas_size, _menu_fracs(cfg)))
+            and X * Y * Z >= cfg.edt_gate_min_vox)
+
+
+def p1_cache_enabled(cfg) -> bool:
+    """Whether this config maintains the phase-1 cache (MapState.p1c)."""
+    return (gate_enabled(cfg) and cfg.edt_p1_cache
+            and phase1_fits(cfg.canvas_size[1]))
+
+
+def _axis_lohi(mask1d: torch.Tensor):
+    """(first, last) true index of a bool [n] (sentinels (n, -1) if none)."""
+    n = mask1d.shape[0]
+    idx = torch.arange(n, dtype=torch.int32, device=mask1d.device)
+    lo = torch.where(mask1d, idx, n).amin()
+    hi = torch.where(mask1d, idx, -1).amax()
+    return lo, hi
+
+
+def _expand_blocks(blk: torch.Tensor) -> torch.Tensor:
+    """bool block grid -> voxel grid (x VB_WIDTH per axis)."""
+    for ax in range(3):
+        blk = blk.repeat_interleave(VB_WIDTH, dim=ax)
+    return blk
+
+
+def _block_any(m: torch.Tensor, g: int) -> torch.Tensor:
+    X, Y, Z = m.shape
+    return m.reshape(X // g, g, Y // g, g, Z // g, g).any(5).any(3).any(1)
+
+
+def _box(off, size):
+    return tuple(slice(int(o), int(o) + int(s)) for o, s in zip(off, size))
+
+
+def _clip(v, lo, hi):
+    return min(max(v, lo), hi)
+
+
+def _finalize(cfg, dist_state_s, coc_state_s, edt, obs_s, pres_s, win_s):
+    """keep_old (limited-observation memory) + take selects on a crop."""
+    cs_arr = torch.tensor(cfg.canvas_size, dtype=torch.int32,
+                          device=dist_state_s.device)
+    valid = edt["valid"]
+    new_dist = torch.where(valid, edt["dist_sq"], EMPTY_VALUE)
+    new_coc = torch.where(valid[..., None], edt["coc"].to(torch.int16), INV16)
+    old_rel = coc_state_s.to(torch.int32)
+    old_valid = coc_state_s[..., 0] != INV16
+    old_in_canvas = ((old_rel >= 0) & (old_rel < cs_arr)).all(-1)
+    keep_old = old_valid & ~old_in_canvas & (dist_state_s < new_dist)
+    dist_s = torch.where(keep_old, dist_state_s, new_dist)
+    coc_s = torch.where(keep_old[..., None], coc_state_s, new_coc)
+    take = win_s & obs_s & pres_s & (dist_s != EMPTY_VALUE)
+    if not cfg.fast_mode:
+        take = take | (obs_s & ~win_s)
+    fin_d = torch.where(take, dist_s, dist_state_s)
+    fin_c = torch.where(take[..., None], coc_s, coc_state_s)
+    return fin_d, fin_c, dist_s, coc_s
+
+
+def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
+                        old_type_win, win_off, window_mask, present_blk,
+                        enter_shift, cfg: MapConfig):
+    """Change-gated exact canvas EDT (see the JAX package's docstring for
+    the affected-region argument).  Returns (final_dist, final_coc,
+    dist_win, coc_win, changed_blk_dist, gate_level, slab_vox, dmax_new,
+    p1c_new)."""
+    dev = canvas_type.device
+    cs = cfg.canvas_size
+    local_size = cfg.local_size
+    X, Y, Z = cs
+    menu = _slab_menu(cs, _menu_fracs(cfg))
+    n_menu = len(menu)
+    off = [int(v) for v in win_off]
+    es = [int(v) for v in enter_shift]
+
+    # ---- change set: occupancy flips + UNKNOWN transitions (window) -------
+    site_flip = (old_type_win == VOX_OCCUPIED) != (new_type_win == VOX_OCCUPIED)
+    unk_flip = (old_type_win == VOX_UNKNOWN) != (new_type_win == VOX_UNKNOWN)
+    chg = site_flip | unk_flip
+    flo, fhi = [], []
+    for a in range(3):
+        other = tuple(i for i in range(3) if i != a)
+        lo, hi = _axis_lohi(site_flip.any(dim=other))
+        flo.append(lo + off[a])
+        fhi.append(hi + off[a])
+    boxes = [(torch.stack(flo), torch.stack(fhi), ~site_flip.any())]
+    # entering and exiting slabs of this frame's canvas move (dead boxes on
+    # frames that do not move the canvas)
+    t3 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+    for a in range(3):
+        s = es[a]
+        lo, hi = [0, 0, 0], [c - 1 for c in cs]
+        lo[a], hi[a] = (cs[a] - s, cs[a] - 1) if s > 0 else (0, -s - 1)
+        boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
+    for a in range(3):
+        s = es[a]
+        lo, hi = [0, 0, 0], [c - 1 for c in cs]
+        lo[a], hi[a] = (-s, -1) if s > 0 else (cs[a], cs[a] - s - 1)
+        boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
+
+    # ---- block P test on the per-cell dist bound ---------------------------
+    big = 1 << 30
+    G = 4
+    cgrid = tuple(c // G for c in cs)
+    cidx = [(torch.arange(n, dtype=torch.int32, device=dev) * G,
+             torch.arange(n, dtype=torch.int32, device=dev) * G + (G - 1))
+            for n in cgrid]
+    bd = None
+    for lo, hi, dead in boxes:
+        parts = []
+        for a, n in enumerate(cs):
+            ilo, ihi = cidx[a]
+            d = torch.clamp(torch.maximum(lo[a] - ihi, ilo - hi[a]), min=0)
+            d = torch.clamp(d, max=n)
+            parts.append(d * d)
+        b = parts[0][:, None, None] + parts[1][None, :, None] + parts[2][None, None, :]
+        b = torch.where(dead, big, b)
+        bd = b if bd is None else torch.minimum(bd, b)
+    p_cell = bd <= state.dmax_cell
+    if cfg.fast_mode:
+        ov = [((cidx[a][0] <= off[a] + local_size[a] - 1)
+               & (cidx[a][1] >= off[a])) for a in range(3)]
+        p_cell = p_cell & ov[0][:, None, None] & ov[1][None, :, None] \
+            & ov[2][None, None, :]
+    bx_lo, bx_hi = _axis_lohi(p_cell.any(2).any(1))
+    by_lo, by_hi = _axis_lohi(p_cell.any(2).any(0))
+    cx_lo, cx_hi = _axis_lohi(chg.any(2).any(1))
+    cy_lo, cy_hi = _axis_lohi(chg.any(2).any(0))
+    x0 = torch.minimum(bx_lo * G, cx_lo + off[0])
+    x1 = torch.maximum(bx_hi * G + (G - 1), cx_hi + off[0])
+    y0 = torch.minimum(by_lo * G, cy_lo + off[1])
+    y1 = torch.maximum(by_hi * G + (G - 1), cy_hi + off[1])
+    any_new = (canvas_type == VOX_OCCUPIED).any()
+    any_old = (state.vox_type == VOX_OCCUPIED).any()
+
+    # ---- one readback: every host-side branch choice of this frame --------
+    t_sync = time.perf_counter()
+    vals = torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
+                        any_new.to(torch.int32), any_old.to(torch.int32),
+                        state.p1c_ok.to(torch.int32)]).tolist()
+    sync_ms = (time.perf_counter() - t_sync) * 1e3
+    x0, x1, y0, y1, flo0, fhi0, any_new, any_old, p1c_ok = vals
+    need_x = max(x1 - x0 // 8 * 8 + 1, 0)
+    need_y = max(y1 - y0 // 8 * 8 + 1, 0)
+    sel = next((k for k, (sx, sy) in enumerate(menu)
+                if need_x <= sx and need_y <= sy), n_menu)
+    if not (any_new and any_old):
+        sel = n_menu  # zero-site epoch or its exit: full recompute
+    if not any_new:
+        sel = n_menu + 1  # no sites at all: constant fill
+
+    # ---- phase-1 cache: patch the site-flip x-slab, or rebuild -----------
+    use_p1c = p1_cache_enabled(cfg)
+    p1c_new = state.p1c
+    mw = sum(cs)
+    if use_p1c:
+        fx_menu = [sx for sx, _ in menu]
+        pneed = max(fhi0 - flo0 // 8 * 8 + 1, 0)
+        psel = next((k for k, fx in enumerate(fx_menu) if pneed <= fx),
+                    len(fx_menu))
+        if not p1c_ok:
+            psel = len(fx_menu)
+        if psel < len(fx_menu):
+            FX = fx_menu[psel]
+            o = _clip(flo0 // 8 * 8, 0, X - FX)
+            p1c_new = state.p1c.clone()
+            phase1_packed(canvas_type[o:o + FX], mw, out=p1c_new[o:o + FX])
+        else:
+            p1c_new = phase1_packed(canvas_type, mw)
+
+    # ---- the chosen branch -------------------------------------------------
+    p1 = p1c_new if use_p1c else None
+    if sel < n_menu:
+        SX, SY = menu[sel]
+        ox = _clip(x0 // 8 * 8, 0, X - SX)
+        oy = _clip(y0 // 8 * 8, 0, Y - SY)
+        box = _box((ox, oy, 0), (SX, SY, Z))
+        pres_s = _expand_blocks(present_blk[ox // 8:ox // 8 + SX // 8,
+                                            oy // 8:oy // 8 + SY // 8, :])
+        slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY, max_width=mw,
+                              p1_packed=p1)
+        win_s = window_mask[box]
+        dist_state_s = state.dist_sq[box]
+        coc_state_s = state.coc[box]
+        obs_s = canvas_type[box] != VOX_UNKNOWN
+        fin_d, fin_c, _, _ = _finalize(cfg, dist_state_s, coc_state_s, slab,
+                                       obs_s, pres_s, win_s)
+        final_dist = state.dist_sq.clone()
+        final_dist[box] = fin_d
+        final_coc = state.coc.clone()
+        final_coc[box] = fin_c
+        changed = torch.zeros(cfg.canvas_blocks, dtype=torch.bool, device=dev)
+        changed[ox // 8:ox // 8 + SX // 8, oy // 8:oy // 8 + SY // 8] = \
+            _block_any(fin_d != dist_state_s, 8)
+        dm_s = torch.where(obs_s, fin_d, -1).reshape(
+            SX // 4, 4, SY // 4, 4, Z // 4, 4).amax(dim=(1, 3, 5))
+        dmax_new = state.dmax_cell.clone()
+        dmax_new[ox // 4:ox // 4 + SX // 4, oy // 4:oy // 4 + SY // 4] = dm_s
+        wb = _box(off, local_size)
+        dist_win, coc_win = final_dist[wb], final_coc[wb]
+        slab_vox = SX * SY * Z
+    else:
+        zero_site = sel == n_menu + 1
+        if zero_site:
+            full = {"valid": torch.zeros(cs, dtype=torch.bool, device=dev),
+                    "dist_sq": torch.zeros(cs, dtype=torch.int32, device=dev),
+                    "coc": torch.zeros(cs + (3,), dtype=torch.int32, device=dev)}
+        else:
+            full = batch_edt(canvas_type, mw, p1_packed=p1)
+        obs = canvas_type != VOX_UNKNOWN
+        final_dist, final_coc, dist_pre, coc_pre = _finalize(
+            cfg, state.dist_sq, state.coc, full, obs,
+            _expand_blocks(present_blk), window_mask)
+        changed = _block_any(final_dist != state.dist_sq, 8)
+        dmax_new = torch.where(obs, final_dist, -1).reshape(
+            X // 4, 4, Y // 4, 4, Z // 4, 4).amax(dim=(1, 3, 5))
+        wb = _box(off, local_size)
+        dist_win, coc_win = dist_pre[wb], coc_pre[wb]
+        slab_vox = 0 if zero_site else X * Y * Z
+    return (final_dist, final_coc, dist_win, coc_win, changed, sel, slab_vox,
+            dmax_new, p1c_new, sync_ms)
+
+
+def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
+                win_off, fence, *, cfg: MapConfig, input_pointcloud: bool,
+                use_fence: bool = True, enter_shift=None):
+    """Fuse one local observation into the global map and refresh the EDT
+    (the JAX package's merge_frame_impl with do_scroll=False, canvas_edt).
+
+    inst_type int8 / ray_count int32 [X, Y, Z] window tensors on the state's
+    device; pvt, canvas_origin_blk, win_off host int triples; fence =
+    (ll, ur, active, n) tensors; enter_shift: this frame's canvas move in
+    voxels (host ints) or None.  Returns (state', outputs dict)."""
+    local_size = cfg.local_size
+    cb = cfg.canvas_blocks
+    cs = cfg.canvas_size
+    bx, by, bz = cb
+    dev = state.vox_type.device
+    off = [int(v) for v in win_off]
+    wb = _box(off, local_size)
+    canvas_origin_vox = torch.tensor(
+        np.asarray(canvas_origin_blk, np.int64) * VB_WIDTH, dtype=torch.int32,
+        device=dev)
+
+    old_dist = state.dist_sq
+    old_type = state.vox_type
+    observed = (ray_count != 0) if input_pointcloud else (inst_type != VOX_UNKNOWN)
+
+    # ---- block allocation (dense: flip present flags) ---------------------
+    lb = tuple(ls // VB_WIDTH + 2 for ls in local_size)
+    start_bk = [o // VB_WIDTH for o in off]
+    sub = [o - s * VB_WIDTH for o, s in zip(off, start_bk)]
+    cov = torch.zeros(tuple(b * VB_WIDTH for b in lb), dtype=torch.bool,
+                      device=dev)
+    cov[_box(sub, local_size)] = observed
+    nb = _block_any(cov, VB_WIDTH)
+    pad = tuple(b + 2 for b in cb)
+    st = [_clip(s, 0, p - l) for s, p, l in zip(start_bk, pad, lb)]
+    needed = torch.zeros(pad, dtype=torch.bool, device=dev)
+    needed[_box(st, lb)] = nb
+    present = state.present | needed[:bx, :by, :bz]
+    pres_pad = torch.zeros(pad, dtype=torch.bool, device=dev)
+    pres_pad[:bx, :by, :bz] = present
+    pres_cov = pres_pad[_box(st, lb)]
+    present_vox_win = _expand_blocks(pres_cov)[_box(sub, local_size)]
+
+    # ---- occupancy fusion ---------------------------------------------------
+    loc_grid = geo.local_coord_grid(local_size, device=dev)
+    pvt_t = torch.tensor(np.asarray(pvt, np.int32), device=dev)
+    old_occ_win = state.occ_val[wb]
+    old_type_win = state.vox_type[wb]
+    if use_fence:
+        glb_pos = geo.coord2pos(loc_grid + pvt_t, cfg.voxel_width)
+        occ_flag = _fence_mask(glb_pos, *fence)
+    else:
+        occ_flag = torch.zeros(local_size, dtype=torch.bool, device=dev)
+    if input_pointcloud:
+        hit = (ray_count > 0) | occ_flag
+        miss = (ray_count < 0) & ~hit
+        pbty = torch.clamp(true_div((-ray_count).to(torch.float32), 10.0),
+                           max=1.0)
+        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
+                                 1.0, cfg.occupancy_threshold)
+        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
+                                 pbty, cfg.occupancy_threshold)
+    else:
+        hit = (inst_type == VOX_OCCUPIED) | occ_flag
+        miss = (inst_type == VOX_FREE) & ~hit
+        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
+                                 _c.LOWPASS_SENSOR_OCC, cfg.occupancy_threshold)
+        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
+                                 _c.LOWPASS_SENSOR_FREE, cfg.occupancy_threshold)
+    upd = present_vox_win & (hit | miss)
+    new_occ_win = torch.where(upd, torch.where(hit, occ_h, occ_m), old_occ_win)
+    new_type_win = torch.where(upd, torch.where(hit, type_h, type_m),
+                               old_type_win)
+    glb_type = torch.where(present_vox_win, new_type_win,
+                           VOX_UNKNOWN).to(torch.int8)
+    ogm_changed = present_vox_win & (new_type_win != old_type_win)
+    canvas_occ = state.occ_val.clone()
+    canvas_occ[wb] = new_occ_win
+    canvas_type = state.vox_type.clone()
+    canvas_type[wb] = new_type_win
+
+    window_mask = torch.zeros(cs, dtype=torch.bool, device=dev)
+    window_mask[wb] = True
+
+    gated = gate_enabled(cfg)
+    if gated:
+        es = [0, 0, 0] if enter_shift is None else enter_shift
+        (final_dist, final_coc, dist_win, coc_win, changed_blk_d, gate_level,
+         slab_vox, dmax_new, p1c_new, sync_ms) = _gated_canvas_merge(
+            state, canvas_type, new_type_win, old_type_win, off, window_mask,
+            present, es, cfg)
+    else:
+        # one exact EDT over the whole canvas, then the same keep-old / take
+        full = batch_edt(canvas_type, sum(cs))
+        obs = canvas_type != VOX_UNKNOWN
+        final_dist, final_coc, dist, coc = _finalize(
+            cfg, state.dist_sq, state.coc, full, obs, _expand_blocks(present),
+            window_mask)
+        dist_win, coc_win = dist[wb], coc[wb]
+
+    # ---- frontiers -----------------------------------------------------------
+    glb_type_out, fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
+
+    pair_valid = dist_win != EMPTY_VALUE
+    observed_win = glb_type != VOX_UNKNOWN
+    writeback = observed_win & pair_valid
+    vt_win = torch.where(fnt & writeback, VOX_FNT, new_type_win).to(torch.int8)
+    canvas_type[wb] = vt_win
+
+    edt = torch.where(
+        observed_win,
+        torch.where(pair_valid, sqrt_f32(dist_win.to(torch.float32)),
+                    float(cfg.max_loc_dist_sq)),
+        0.0)
+
+    # ---- changed-block tracking --------------------------------------------
+    occ_changed_win = new_occ_win != old_occ_win
+    if gated:
+        win_changed = torch.zeros(cs, dtype=torch.bool, device=dev)
+        win_changed[wb] = (vt_win != old_type_win) | occ_changed_win
+        changed_blk = (changed_blk_d | _block_any(win_changed, VB_WIDTH)) & present
+    else:
+        occ_canvas = torch.zeros(cs, dtype=torch.bool, device=dev)
+        occ_canvas[wb] = occ_changed_win
+        changed_vox = (final_dist != old_dist) | (canvas_type != old_type) | occ_canvas
+        changed_blk = _block_any(changed_vox, VB_WIDTH) & present
+    if enter_shift is not None:
+        entering = torch.zeros(cb, dtype=torch.bool, device=dev)
+        for a in range(3):
+            s = int(enter_shift[a]) // VB_WIDTH
+            bi = torch.arange(cb[a], device=dev).reshape(
+                [-1 if i == a else 1 for i in range(3)])
+            entering |= (bi >= cb[a] - s) if s > 0 else (bi < -s)
+        changed_blk = changed_blk | (entering & present)
+
+    state = dataclasses.replace(
+        state, occ_val=canvas_occ, vox_type=canvas_type, dist_sq=final_dist,
+        coc=final_coc, present=present,
+        dmax_cell=(dmax_new if gated else torch.full(
+            tuple(c // 4 for c in cs), EMPTY_VALUE, dtype=torch.int32,
+            device=dev)),
+        p1c=p1c_new if gated else state.p1c,
+        p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg), device=dev),
+    )
+
+    coc_glb_win = torch.where(
+        (observed_win & (coc_win[..., 0] != INV16))[..., None],
+        coc_win.to(torch.int32) + canvas_origin_vox, INV16)
+    outputs = {
+        "changed_blk": changed_blk,
+        "relax_iters": 0,
+        "arch_dropped": state.arch_dropped,
+        "fnt_count": fnt.sum(dtype=torch.int32),
+        "gate_level": gate_level if gated else -1,
+        "gate_slab_vox": slab_vox if gated else cs[0] * cs[1] * cs[2],
+        # host ms spent in the gate's one readback (waiting for the device
+        # to reach it included); 0.0 when the gate is off
+        "gate_sync_ms": sync_ms if gated else 0.0,
+        "edt": edt,
+        "glb_type": glb_type_out,
+        "dist_sq": torch.where(observed_win, dist_win, EMPTY_VALUE),
+        "coc": coc_glb_win,
+        "ogm_changed": ogm_changed,
+    }
+    return state, outputs

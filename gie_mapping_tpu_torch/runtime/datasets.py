@@ -1,0 +1,169 @@
+"""Synthetic worlds, the point-cloud simulator and trajectories (numpy
+only).
+
+BoxWorld and circular_trajectory are copies from
+gie_mapping_tpu/runtime/datasets.py (the machine that runs the port on a
+GPU has no JAX, and the JAX package's module imports its JAX geometry):
+worlds and clouds made from one seed are identical in both packages.  The
+simulators of the sensors the port does not have yet stay there.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ..utils import geometry as geo
+
+
+@dataclasses.dataclass
+class BoxWorld:
+    """Axis-aligned boxes [M, 2, 3] (ll, ur) in metres + bounding walls."""
+
+    boxes: np.ndarray
+    bounds_ll: np.ndarray
+    bounds_ur: np.ndarray
+
+    @staticmethod
+    def corridor(seed=0, n_pillars=6, extent=8.0, height=3.0):
+        rng = np.random.default_rng(seed)
+        boxes = []
+        for _ in range(n_pillars):
+            c = rng.uniform(-extent * 0.7, extent * 0.7, 2)
+            w = rng.uniform(0.2, 0.8, 2)
+            h = rng.uniform(0.8, height, 1)[0]
+            boxes.append([[c[0] - w[0], c[1] - w[1], 0.0], [c[0] + w[0], c[1] + w[1], h]])
+        return BoxWorld(
+            boxes=np.asarray(boxes, np.float32),
+            bounds_ll=np.asarray([-extent, -extent, 0.0], np.float32),
+            bounds_ur=np.asarray([extent, extent, height], np.float32),
+        )
+
+    def occupied(self, pts):
+        """Boolean: world points inside any box or outside the bounds walls."""
+        pts = np.asarray(pts)
+        inside_box = np.zeros(pts.shape[:-1], bool)
+        for ll, ur in self.boxes:
+            inside_box |= np.all((pts >= ll) & (pts <= ur), -1)
+        outside = np.any(pts < self.bounds_ll, -1) | np.any(pts > self.bounds_ur, -1)
+        return inside_box | outside
+
+    # -- analytic sensors ----------------------------------------------
+    def ray_march(self, origin, dirs, max_range=30.0, step=0.02):
+        """First-hit range along each direction, on the same sample grid as
+        dense marching (t = step, 2*step, ... < max_range; first sample
+        inside any box — inclusive bounds — or strictly outside the world
+        walls).
+
+        Implemented analytically (slab ray-AABB intervals in float64 +
+        searchsorted onto the float32 sample grid); the JAX package's copy
+        keeps the dense-sampling oracle it is tested against."""
+        o = np.asarray(origin, np.float64)
+        d = np.asarray(dirs, np.float64)
+        R = d.shape[0]
+        ts = np.arange(step, max_range, step, dtype=np.float32)
+        n_t = len(ts)
+        ts64 = ts.astype(np.float64)
+
+        with np.errstate(divide="ignore", invalid="ignore"):
+            inv = 1.0 / d  # +-inf where d==0 (IEEE semantics)
+
+            def interval_k(tn, tf, strict_lo=False):
+                """First sample index inside [tn, tf] (or (tn, ...) when
+                strict_lo), n_t when none."""
+                side = "right" if strict_lo else "left"
+                k0 = np.searchsorted(ts64, tn, side=side)
+                kk = np.minimum(k0, n_t - 1)
+                ok = (k0 < n_t) & (ts64[kk] <= tf)
+                return np.where(ok, k0, n_t)
+
+            def slab(ll, ur):
+                # d==0 outside the slab: +-inf same sign -> empty interval;
+                # inside: -inf/+inf -> full.  NaN (o exactly on a face with
+                # d==0) counts inside, matching p >= ll & p <= ur.
+                t0 = (np.asarray(ll, np.float64)[None, :] - o[None, :]) * inv
+                t1 = (np.asarray(ur, np.float64)[None, :] - o[None, :]) * inv
+                lo = np.where(np.isnan(np.fmin(t0, t1)), -np.inf,
+                              np.fmin(t0, t1))
+                hi = np.where(np.isnan(np.fmax(t0, t1)), np.inf,
+                              np.fmax(t0, t1))
+                return lo.max(axis=1), hi.min(axis=1)
+
+            first_k = np.full(R, n_t, np.int64)
+            for ll, ur in self.boxes:
+                tn, tf = slab(ll, ur)
+                first_k = np.minimum(first_k, interval_k(tn, tf))
+            # outside the bounding walls (STRICT inequalities): occupied for
+            # every sample strictly past the world-box exit, and before a
+            # (re)entry for rays starting outside
+            tn, tf = slab(self.bounds_ll, self.bounds_ur)
+            first_k = np.minimum(first_k, interval_k(tf, np.inf,
+                                                     strict_lo=True))
+            outside0 = np.any(o < self.bounds_ll.astype(np.float64)) or \
+                np.any(o > self.bounds_ur.astype(np.float64))
+            if outside0:
+                first_k = np.minimum(first_k, interval_k(
+                    np.full(R, -np.inf), np.minimum(tn, np.inf) - 1e-12))
+
+        hit = first_k < n_t
+        return np.where(hit, ts[np.minimum(first_k, n_t - 1)],
+                        np.nan).astype(np.float32)
+
+    def pointcloud(self, proj: geo.Projection, n_rays=4096, max_range=12.0, seed=0):
+        """Simulated omnidirectional pointcloud: endpoints in SENSOR frame."""
+        rng = np.random.default_rng(seed)
+        v = rng.normal(size=(n_rays, 3)).astype(np.float32)
+        v /= np.linalg.norm(v, axis=-1, keepdims=True)
+        rot = np.asarray(proj.rot)
+        ranges = self.ray_march(np.asarray(proj.trans), v @ rot.T, max_range)
+        ok = ~np.isnan(ranges)
+        return (v[ok] * ranges[ok, None]).astype(np.float32)
+
+
+def circular_trajectory(n_frames=20, radius=2.0, height=1.0, closed=False):
+    """Poses orbiting the origin, always facing forward along the orbit.
+
+    closed: spread the frames over the FULL circle so frame n-1 is adjacent
+    to frame 0 (replaying the sequence wraps with an ordinary scroll)."""
+    out = []
+    for i in range(n_frames):
+        a = 2 * np.pi * i / max(n_frames, 1) * (1.0 if closed else 0.5)
+        pos = np.asarray([radius * np.cos(a), radius * np.sin(a), height], np.float32)
+        yaw = a + np.pi / 2
+        quat = (np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2))
+        out.append(geo.Projection.from_pose(pos, quat))
+    return out
+
+
+def yaw_then_translate(n_yaw=8, n_move=4, start=(0.0, 0.0, 1.2),
+                       yaw_step=np.pi / 4, step_x=0.05):
+    """(position float32 [3], quaternion (w, x, y, z)) poses that turn in
+    place through `n_yaw` headings `yaw_step` apart, then translate
+    +`step_x` m per frame in x for `n_move` frames at the last heading.
+
+    Plain numpy pairs, so that either package builds its own Projection
+    from them (`Projection.from_pose(*pose)`)."""
+    pos = np.asarray(start, np.float32)
+    quat = lambda yaw: (np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2))
+    out = [(pos.copy(), quat(i * yaw_step)) for i in range(n_yaw)]
+    last = (n_yaw - 1) * yaw_step
+    for i in range(1, n_move + 1):
+        out.append((pos + np.asarray([step_x * i, 0.0, 0.0], np.float32),
+                    quat(last)))
+    return out
+
+
+COW_SLICE_RAYS = 131072  # live points per frame of the cow-lady slice
+
+
+def cow_lady_slice():
+    """(MapConfig overrides, world, poses) of the port's cow-lady slice: the
+    cow_lady preset with 131072 points per frame and streaming off, the
+    corridor world of the headline bench, and the 12-pose yaw-then-translate
+    trajectory (which never leaves the canvas after frame 0).  Frame i's
+    cloud is world.pointcloud(proj_i, n_rays=COW_SLICE_RAYS, max_range=8.0,
+    seed=i)."""
+    overrides = dict(max_raycast_points=COW_SLICE_RAYS, display_glb_edt=False,
+                     display_glb_ogm=False)
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
+    return overrides, world, yaw_then_translate()

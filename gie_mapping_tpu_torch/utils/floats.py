@@ -1,0 +1,49 @@
+"""Float32 arithmetic rounded exactly as the JAX package's CPU reference
+rounds it, on every device.
+
+Three PyTorch defaults would otherwise move results by an ulp, and an ulp
+moves a voxel across a panorama bin edge:
+  * CUDA divides by a Python scalar as a multiply by its reciprocal;
+  * the vectorised CPU float32 sqrt is off by one ulp for ~0.6 % of inputs;
+  * XLA contracts some multiply-adds into fused multiply-adds, which
+    PyTorch has no operator for.
+"""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d as an IEEE division (the divisor is a tensor on a's device)."""
+    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
+
+
+def sqrt_f32(a: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 square root: the float64 root rounded to
+    float32 (float64 carries more than 2 * 24 + 2 bits, so the double
+    rounding cannot err)."""
+    return torch.sqrt(a.double()).float()
+
+
+def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """Correctly rounded float32 a*b + c (one rounding).
+
+    The product is exact in float64 and the sum rounds once there; the only
+    way the float64 -> float32 rounding can then disagree with a single
+    rounding is a result exactly halfway between two floats, which the exact
+    residual of the float64 sum (TwoSum) resolves."""
+    a64, b64, c64 = a.double(), b.double(), c.double()
+    p = a64 * b64
+    s = p + c64
+    bb = s - p
+    err = (p - (s - bb)) + (c64 - bb)
+    f = s.float()
+    up = torch.nextafter(f, torch.full_like(f, math.inf))
+    dn = torch.nextafter(f, torch.full_like(f, -math.inf))
+    f64 = f.double()
+    tie_up = s == (f64 + up.double()) * 0.5
+    tie_dn = s == (f64 + dn.double()) * 0.5
+    f = torch.where(tie_up & (err > 0), up, f)
+    return torch.where(tie_dn & (err < 0), dn, f)

@@ -1,0 +1,96 @@
+"""Rigid transforms and voxel-grid frame conversions, in PyTorch.
+
+Counterpart of gie_mapping_tpu/utils/geometry.py (the reference's
+SE3/Projection substrate and LocMap frame math).  Points are (..., 3)
+float32 tensors and voxel coordinates (..., 3) int32 tensors; host-side
+helpers stay numpy.
+
+Float results must equal the JAX package's bit for bit, so every formula
+keeps the reference's operation order and rounding (utils/floats.py).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .floats import fma_f32, true_div
+
+
+def quat_to_rot(qw, qx, qy, qz):
+    """Quaternion (w,x,y,z) to 3x3 rotation matrix (numpy, host-side)."""
+    n = np.sqrt(qw * qw + qx * qx + qy * qy + qz * qz)
+    qw, qx, qy, qz = qw / n, qx / n, qy / n, qz / n
+    return np.array(
+        [
+            [1 - 2 * (qy * qy + qz * qz), 2 * (qx * qy - qw * qz), 2 * (qx * qz + qw * qy)],
+            [2 * (qx * qy + qw * qz), 1 - 2 * (qx * qx + qz * qz), 2 * (qy * qz - qw * qx)],
+            [2 * (qx * qz - qw * qy), 2 * (qy * qz + qw * qx), 1 - 2 * (qx * qx + qy * qy)],
+        ],
+        dtype=np.float32,
+    )
+
+
+@dataclasses.dataclass
+class Projection:
+    """Sensor pose: the local(sensor)->global rigid transform.
+
+    rot (3,3) float32 and trans (3,) float32 tensors, on the CPU unless moved
+    with `to`."""
+
+    rot: torch.Tensor
+    trans: torch.Tensor
+
+    def l2g(self, pts: torch.Tensor) -> torch.Tensor:
+        """pts @ rot.T + trans, rounded as the JAX package's eager CPU matmul
+        rounds it for point counts that are multiples of 4096 (the mapper's
+        staging buckets): output x and y as ((x r0 + y r1) + z r2), output z
+        as fma(z, r2, fma(y, r1, x r0)); then + trans.  A library matmul
+        would fuse or reorder these differently."""
+        r = self.rot.to(pts.device)
+        x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
+        xy = (x * r[:2, 0] + y * r[:2, 1]) + z * r[:2, 2]
+        zz = fma_f32(z, r[2, 2], fma_f32(y, r[2, 1], x * r[2, 0]))
+        return torch.cat([xy, zz], dim=1) + self.trans.to(pts.device)
+
+    def to(self, device) -> "Projection":
+        return Projection(self.rot.to(device), self.trans.to(device))
+
+    @staticmethod
+    def from_pose(position, quat_wxyz) -> "Projection":
+        """Build from a (3,) position and (w,x,y,z) quaternion (host-side)."""
+        rot = quat_to_rot(*[float(q) for q in quat_wxyz])
+        return Projection(
+            rot=torch.from_numpy(rot),
+            trans=torch.from_numpy(np.asarray(position, np.float32).copy()),
+        )
+
+
+def pos2coord(p: torch.Tensor, voxel_width: float) -> torch.Tensor:
+    """Metres -> global voxel coordinate; floor(p/width + 0.5)."""
+    return torch.floor(true_div(p, voxel_width) + 0.5).to(torch.int32)
+
+
+def coord2pos(c: torch.Tensor, voxel_width: float) -> torch.Tensor:
+    """Global voxel coordinate -> metres of the voxel centre."""
+    return c.to(torch.float32) * voxel_width
+
+
+def calculate_pivot(map_center, voxel_width, local_size):
+    """Window pivot so the window is centred on the robot (numpy, host)."""
+    center = np.floor(np.asarray(map_center) / voxel_width + 0.5).astype(np.int64)
+    return (center - np.asarray(local_size) // 2).astype(np.int32)
+
+
+def local_coord_grid(local_size, device=None) -> torch.Tensor:
+    """Dense (X,Y,Z,3) int32 grid of local voxel coordinates."""
+    X, Y, Z = (int(s) for s in local_size)
+    axes = [torch.arange(n, dtype=torch.int32, device=device) for n in (X, Y, Z)]
+    return torch.stack(torch.meshgrid(*axes, indexing="ij"), dim=-1)
+
+
+def inside_volume(c: torch.Tensor, size) -> torch.Tensor:
+    """Boolean mask: coordinate triple within [0, size)."""
+    size = torch.as_tensor(size, dtype=torch.int32, device=c.device)
+    return ((c >= 0) & (c < size)).all(dim=-1)

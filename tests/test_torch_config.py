@@ -1,0 +1,91 @@
+"""The PyTorch port's configuration and package boundary.
+
+The port copies the JAX package's MapConfig, presets and constants (the JAX
+copies import JAX); these tests hold the copies equal field by field, and
+check that importing any module of the port leaves JAX unloaded.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+
+import numpy as np
+import pytest
+
+import gie_mapping_tpu.utils.config as jcfg
+import gie_mapping_tpu.utils.constants as jconst
+import gie_mapping_tpu_torch.utils.config as tcfg
+import gie_mapping_tpu_torch.utils.constants as tconst
+
+DERIVED = ("local_size", "map_volume", "max_width", "max_loc_dist_sq",
+           "cutoff_grids_sq", "robot_r2_grids", "is_2d", "halo_grids",
+           "canvas_blocks", "canvas_size", "relax_iters", "stream_capacity")
+
+
+@pytest.mark.parametrize("case", sorted(jcfg.PRESETS))
+def test_presets_match_field_by_field(case):
+    j = jcfg.load_config(case)
+    t = tcfg.load_config(case)
+    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    for name in DERIVED:
+        assert getattr(j, name) == getattr(t, name), name
+
+
+def test_defaults_fields_and_constants_match():
+    assert [f.name for f in dataclasses.fields(jcfg.MapConfig)] == \
+        [f.name for f in dataclasses.fields(tcfg.MapConfig)]
+    assert dataclasses.asdict(jcfg.MapConfig()) == dataclasses.asdict(tcfg.MapConfig())
+    for name in dir(jconst):
+        if name.isupper():
+            assert getattr(jconst, name) == getattr(tconst, name), name
+    np.testing.assert_array_equal(jcfg.T_V_C, tcfg.T_V_C)
+    np.testing.assert_array_equal(jcfg.DEFAULT_FENCE_LL, tcfg.DEFAULT_FENCE_LL)
+    np.testing.assert_array_equal(jcfg.DEFAULT_FENCE_UR, tcfg.DEFAULT_FENCE_UR)
+    from gie_mapping_tpu.ops.edt_batch import _ENV_VARIANTS
+
+    assert sorted(_ENV_VARIANTS) == sorted(tcfg._ENV_VARIANTS)
+
+
+def test_validation_matches():
+    for bad in (dict(merge_mode="x"), dict(edt_env_variant="x"),
+                dict(edt_phase1="x"), dict(edt_gate_pmode="x")):
+        with pytest.raises(ValueError):
+            jcfg.MapConfig(**bad)
+        with pytest.raises(ValueError):
+            tcfg.MapConfig(**bad)
+
+
+@pytest.mark.parametrize("override", [
+    dict(merge_mode="relax"), dict(raycast_mode="dda"), dict(edt_mid=False),
+    dict(edt_phase1="xla"), dict(edt_env_variant="base"),
+    dict(edt_gate_pmode="voxel"), dict(display_glb_edt=True),
+    dict(local_size_m=(10.0, 10.0, 0.1)),
+])
+def test_unported_options_are_refused(override):
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    kw = dict(display_glb_edt=False, display_glb_ogm=False)
+    kw.update(override)
+    cfg = tcfg.cow_lady_config(**kw)
+    assert tcfg.unported_options(cfg)
+    with pytest.raises(NotImplementedError):
+        VolumetricMapper(cfg)
+
+
+def test_port_never_imports_jax():
+    code = textwrap.dedent("""
+        import importlib, pkgutil, sys
+        import gie_mapping_tpu_torch as pkg
+        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
+            importlib.import_module(m.name)
+        bad = sorted(k for k in sys.modules
+                     if k in ("jax", "gie_mapping_tpu")
+                     or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.")))
+        print(bad)
+        assert not bad, bad
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=root)
+    assert r.returncode == 0, r.stdout + r.stderr
