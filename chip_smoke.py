@@ -11,16 +11,28 @@ Phases, one JSON line each; any failure exits non-zero:
                 the slice's shapes and at random ones (ties, empty lanes):
                 phase 1 and both envelopes bitwise; batch_edt / batch_edt_slab
                 bitwise against the plain chain; the carve within 0.01 % of
-                window voxels.  Times each kernel and its plain version.
+                window voxels; the canvas shift and the four block/archive
+                row copies bitwise (every z arm, shifts past the canvas,
+                sentinel cocs, all-invalid and repeated ids).  Times each
+                kernel and its plain version.
   4. slice    - the cow-lady point-cloud frame through
                 VolumetricMapper.process_pointcloud at full size (152x152x80
-                canvas, 131072 points per frame, 12 frames); every kernel
-                must have launched; the final canvas EDT must equal scipy's
-                exactly; the run must agree with the JAX package's results
-                (tests/fixtures/torch_port_cow_ref.npz).
-  5. profile  - only with --profile: torch.profiler over a second slice run.
-Then one line with every kernel's launches, error and times, the card's
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+                canvas, 131072 points per frame, 12 frames, streaming off);
+                its four kernels must have launched; the final canvas EDT
+                must equal scipy's exactly; the run must agree with the JAX
+                package's results (tests/fixtures/torch_port_cow_ref.npz).
+  5. scroll   - the cow_lady preset at its own defaults (streaming on) over
+                26 poses that scroll in x both ways, in z and by a teleport
+                past the canvas and back; all nine kernels must have
+                launched, no CapacityWarning may fire, the final canvas EDT
+                must equal scipy's, and origins, every frame's outputs, the
+                final state and the host mirror must equal the JAX package's
+                (tests/fixtures/torch_port_cow_scroll_ref.npz).
+  6. profile  - only with --profile: torch.profiler over a second run of
+                each path (slice and scroll).
+Then one line with every kernel's launches (summed over the two paths, each
+counted from 0 just before it), error and times, the card's nvidia-smi
+line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
@@ -33,6 +45,7 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 REF = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_ref.npz")
+REF_SCROLL = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_scroll_ref.npz")
 LOG: list = []
 CARVE_TOL = 1e-4  # fraction of window voxels the carve may disagree on
 
@@ -277,11 +290,121 @@ def phase_kernels(dev, results):
         max_abs_err=carve_err,
         ms=cuda_ms(lambda: kc.carve(depth, cnt, ep, pvt, origin, **kw), 50),
         plain_ms=cuda_ms(lambda: kc.carve_plain(depth, cnt, ep, pvt, origin, **kw), 5))
+    scroll_bad = scroll_kernels(dev, results)
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
-          "edt_bad": edt_bad,
+          "edt_bad": edt_bad, "scroll_kernels_bad": scroll_bad,
           "ms": {k: round(v["ms"], 4) for k, v in results.items()},
           "plain_ms": {k: round(v["plain_ms"], 4) for k, v in results.items()}})
     return carve_bad
+
+
+def packed_words(shape, seed, device):
+    """Random packed voxel words (int32 bit patterns) whose 16-bit coc
+    halves include the 0x7FFF sentinel and negative values."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    w = np.where(rng.random(shape) < 0.1, (w & 0xFFFF0000) | 0x7FFF, w)
+    w = np.where(rng.random(shape) < 0.1, (w & 0xFFFF) | 0x7FFF0000, w)
+    return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
+
+
+def scroll_kernels(dev, results):
+    """The canvas shift and the four row copies against their plain
+    versions, bitwise, at the cow-lady scroll's shapes; returns the count
+    of differing words."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch import map_state as ms
+    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
+    from gie_mapping_tpu_torch.ops.kernels import shift as ks
+
+    ph = "kernels"
+    cb = (19, 19, 10)
+    X, Y, Z = 152, 152, 80
+    ncols, nb, B = 361, 3610, 11997
+    bad, err = {}, {}
+
+    def compare(name, a, b):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        bad[name] = bad.get(name, 0) + int((d != 0).sum())
+        err[name] = max(err.get(name, 0), int(d.max()))
+    # ---- shift: every z arm of the TPU kernel, and shifts past the canvas
+    cv = packed_words((X, Y, 3 * Z), 21, dev)
+    dflt = torch.from_numpy(np.tile(ms._PACKED_DEFAULT, Z).view(np.int32)).to(dev)
+    for sh in ((1, 0, 0), (-1, 0, 0), (1, -1, 0), (0, 0, 1), (0, 0, -1),
+               (0, 0, 3), (0, 0, -3), (0, 0, 12), (0, 0, -12), (20, 0, 0),
+               (-20, 0, 0), (3, -2, 2), (1 << 27, 0, 0)):
+        compare("shift_canvas", ks.shift_canvas(cv, dflt, sh),
+                ks.shift_canvas_plain(cv, dflt, sh))
+    # ---- canvas block-columns -> rows: all columns, a stream tick's 64
+    # (valid first, zero padding repeated), repeats
+    packed = cv.reshape(X, Y, Z, 3)
+    g = torch.Generator().manual_seed(22)
+    id_sets = [torch.arange(ncols, dtype=torch.int32),
+               torch.cat([torch.randperm(ncols, generator=g)[:40].to(torch.int32),
+                          torch.zeros(24, dtype=torch.int32)]),
+               torch.tensor([7, 7, 360, 0, 7], dtype=torch.int32)]
+    for ids in id_sets:
+        ids = ids.to(dev)
+        compare("gather_block_rows", kb.gather_block_rows(packed, ids, cb),
+                kb.gather_block_rows_plain(packed, ids, cb))
+    # ---- rows -> canvas blocks: partly valid unique columns with repeated
+    # invalid (zero) column ids, all invalid, everything valid
+    perm = torch.randperm(ncols, generator=g).to(torch.int32)
+    cols = torch.cat([perm[:48], torch.zeros(16, dtype=torch.int32)]).to(dev)
+    rows = packed_words((64 * 10, 512, 3), 23, dev)
+    part = (torch.rand(640, generator=g) < 0.5).to(torch.int32)
+    part[480:] = 0
+    for c, r, v in ((cols, rows, part.to(dev)),
+                    (cols, rows, torch.zeros(640, dtype=torch.int32, device=dev)),
+                    (perm.to(dev), packed_words((nb, 512, 3), 24, dev),
+                     torch.ones(nb, dtype=torch.int32, device=dev))):
+        compare("scatter_block_rows",
+                kb.scatter_block_rows(packed.clone(), r, c, v, cb),
+                kb.scatter_block_rows_plain(packed.clone(), r, c, v, cb))
+    # ---- archive rows: a full scroll's 3610 ids, unique valid targets
+    arch = packed_words((B, 1536), 25, dev)
+    aids = torch.randperm(B, generator=g)[:nb].to(torch.int32).to(dev)
+    compare("gather_archive_rows", kb.gather_archive_rows(arch, aids),
+            kb.gather_archive_rows_plain(arch, aids))
+    arows = packed_words((nb, 512, 3), 26, dev)
+    for v in ((torch.rand(nb, generator=g) < 0.5).to(torch.int32),
+              torch.zeros(nb, dtype=torch.int32), torch.ones(nb, dtype=torch.int32)):
+        v = v.to(dev)
+        compare("scatter_archive_rows",
+                kb.scatter_archive_rows(arch.clone(), arows, aids, v),
+                kb.scatter_archive_rows_plain(arch.clone(), arows, aids, v))
+    torch.cuda.synchronize()
+    require(not any(bad.values()), ph, f"scroll kernels differ from their plain versions: {bad}")
+    # times at the main path's shapes: a 1-block x shift; a stream tick's 64
+    # columns out; a full scroll bucket of 361 columns (3610 rows) in;
+    # 3610 archive rows each way
+    all_valid = torch.ones(nb, dtype=torch.int32, device=dev)
+    s64 = id_sets[1].to(dev)
+    r_all = kb.gather_block_rows(packed, perm.to(dev), cb)
+    arch2 = arch.clone()
+    timings = {
+        "shift_canvas": (lambda: ks.shift_canvas(cv, dflt, (1, 0, 0)),
+                         lambda: ks.shift_canvas_plain(cv, dflt, (1, 0, 0))),
+        "gather_block_rows": (lambda: kb.gather_block_rows(packed, s64, cb),
+                              lambda: kb.gather_block_rows_plain(packed, s64, cb)),
+        "scatter_block_rows": (
+            lambda: kb.scatter_block_rows(packed, r_all, perm.to(dev), all_valid, cb),
+            lambda: kb.scatter_block_rows_plain(packed, r_all, perm.to(dev), all_valid, cb)),
+        "gather_archive_rows": (lambda: kb.gather_archive_rows(arch, aids),
+                                lambda: kb.gather_archive_rows_plain(arch, aids)),
+        "scatter_archive_rows": (
+            lambda: kb.scatter_archive_rows(arch2, arows, aids, all_valid),
+            lambda: kb.scatter_archive_rows_plain(arch2, arows, aids, all_valid)),
+    }
+    for k, (fk, fp) in timings.items():
+        results[k] = dict(max_abs_err=err[k], ms=cuda_ms(fk, 50),
+                          plain_ms=cuda_ms(fp, 10))
+    return bad
 
 
 def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
@@ -338,9 +461,50 @@ def _frames(mapper, poses, staged, recs):
             out_sha=output_digest(gt, out.dist_sq, out.coc)))
 
 
-def phase_slice(dev, carve_bad):
+def edt_mismatch(st):
+    """Voxels of a final state (numpy fields) whose EDT is wrong: every
+    valid voxel's dist_sq must be its squared distance to its stored coc;
+    where the coc lies in the canvas it must equal scipy's exact EDT over
+    the canvas's sites; where it lies outside (a site that scrolled out,
+    kept by the limited-observation memory) it must be strictly nearer than
+    any canvas site.  Returns (mismatching voxels, voxels kept from outside)."""
     import numpy as np
     from scipy import ndimage
+
+    occ = st["vox_type"] == 2
+    require(occ.any(), "edt", "the final canvas holds no site")
+    sq = np.rint(ndimage.distance_transform_edt(~occ) ** 2).astype(np.int64)
+    chk = (st["vox_type"] != 0) & (st["dist_sq"] != 999_999)
+    coc = st["coc"].astype(np.int64)
+    cs = np.asarray(occ.shape)
+    inside = np.all((coc >= 0) & (coc < cs), axis=-1)
+    g = np.stack(np.meshgrid(*[np.arange(n) for n in cs], indexing="ij"), -1)
+    d = st["dist_sq"].astype(np.int64)
+    bad = (chk & (((g - coc) ** 2).sum(-1) != d)) \
+        | (chk & inside & (d != sq)) | (chk & ~inside & (d >= sq))
+    return int(bad.sum()), int((chk & ~inside).sum())
+
+
+def all_wrappers():
+    """{name: wrapper} of every kernel of the port (each keeps a launch
+    count)."""
+    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
+    from gie_mapping_tpu_torch.ops.kernels import carve as kc
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+    from gie_mapping_tpu_torch.ops.kernels import shift as ks
+
+    return {"phase1": kp.phase1_packed, "envelope_packed": ke.envelope_packed,
+            "envelope_mid": ke.envelope_mid, "carve": kc.carve,
+            "shift_canvas": ks.shift_canvas,
+            "gather_block_rows": kb.gather_block_rows,
+            "scatter_block_rows": kb.scatter_block_rows,
+            "gather_archive_rows": kb.gather_archive_rows,
+            "scatter_archive_rows": kb.scatter_archive_rows}
+
+
+def phase_slice(dev, carve_bad):
+    import numpy as np
 
     from gie_mapping_tpu_torch.map_state import state_digest, state_to_numpy
     from gie_mapping_tpu_torch.ops.kernels import carve as kc
@@ -368,11 +532,7 @@ def phase_slice(dev, carve_bad):
 
     # final canvas EDT against scipy on observed voxels with a valid pair
     st = state_to_numpy(mapper.state)
-    occ = st["vox_type"] == 2
-    require(occ.any(), ph, "the final canvas holds no site")
-    sq = np.rint(ndimage.distance_transform_edt(~occ) ** 2).astype(np.int64)
-    chk = (st["vox_type"] != 0) & (st["dist_sq"] != 999_999)
-    edt_bad = int((st["dist_sq"][chk] != sq[chk]).sum())
+    edt_bad, _ = edt_mismatch(st)
     require(edt_bad == 0, ph, f"canvas dist_sq differs from scipy at {edt_bad} voxels")
 
     # agreement with the JAX package's results on the same slice
@@ -397,39 +557,205 @@ def phase_slice(dev, carve_bad):
     return launches, frames, poses
 
 
+def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None):
+    """Drive the scroll path through VolumetricMapper.process_pointcloud;
+    the launch counters of `wrappers` are zeroed right before the first
+    frame and `loop_ctx` wraps the frame loop alone.  Returns (mapper,
+    per-frame records, the warnings caught)."""
+    import contextlib
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import np_scroll_counts, output_digest
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    mapper = VolumetricMapper(cfg, device=dev)
+    mapper.warmup(robot_pos=poses[0][0])
+    staged = [mapper.stage_pointcloud(p) for p in frames]
+    torch.cuda.synchronize()
+    # host time of the mirror ingest (pure Python; the device idles through it)
+    flush, ingest_ms = mapper.flush_stream, [0.0]
+
+    def timed_flush():
+        t = time.perf_counter()
+        n = flush()
+        ingest_ms[0] += (time.perf_counter() - t) * 1e3
+        return n
+
+    mapper.flush_stream = timed_flush
+    recs = []
+    for w in wrappers:
+        w.launches = 0
+    with warnings.catch_warnings(record=True) as caught, \
+            (loop_ctx or contextlib.nullcontext()):
+        warnings.simplefilter("always")
+        for i, ((pos, quat), (pts, val)) in enumerate(zip(poses, staged)):
+            before = None if mapper._origin is None else mapper._origin.copy()
+            present = mapper.state.present.cpu().numpy()
+            ingested = mapper.stream_ingested
+            ingest_ms[0] = 0.0
+            proj = geo.Projection.from_pose(pos, quat)
+            torch.cuda.synchronize()
+            s = torch.cuda.Event(enable_timing=True)
+            e = torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            s.record()
+            out = mapper.process_pointcloud(proj, pts, val)
+            e.record()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3
+            scrolled = before is None or not np.array_equal(before, mapper._origin)
+            n_arch = int(mapper.state.n_arch)
+            old = np.zeros(3, np.int64) if before is None else before
+            ex, en = (np_scroll_counts(present, mapper._origin - old,
+                                       mapper.state.arch_keys[:n_arch].cpu().numpy(),
+                                       n_arch, mapper._origin)
+                      if scrolled else (0, 0))
+            gt = out.glb_type
+            recs.append(dict(
+                frame=i, origin=[int(v) for v in mapper._origin], scrolled=bool(scrolled),
+                exits=ex, enters=en, n_arch=n_arch,
+                ingested=mapper.stream_ingested - ingested,
+                leftover=int(mapper._stream_pending[0][4]),
+                gate_level=int(out.gate_level), ms=s.elapsed_time(e), wall_ms=wall,
+                ingest_ms=ingest_ms[0],
+                out_sha=output_digest(gt, out.dist_sq, out.coc)))
+        mapper.flush_stream()
+        mapper.check_capacity()
+    return mapper, recs, caught
+
+
+def scroll_inputs():
+    """(config, clouds, poses) of the scroll path."""
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_scroll)
+    from gie_mapping_tpu_torch.utils import geometry as geo
+    from gie_mapping_tpu_torch.utils.config import cow_lady_config
+
+    overrides, world, poses = cow_lady_scroll()
+    frames = [world.pointcloud(geo.Projection.from_pose(*p), n_rays=COW_SLICE_RAYS,
+                               max_range=8.0, seed=i) for i, p in enumerate(poses)]
+    return cow_lady_config(**overrides), frames, poses
+
+
+def phase_scroll(dev, wrappers):
+    """The cow_lady preset at its own defaults (streaming on) over the
+    scroll trajectory; returns the launch counts of its run."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import state_digest, state_to_numpy
+    from gie_mapping_tpu_torch.models.mapper import CapacityWarning
+
+    ph = "scroll"
+    ref = np.load(REF_SCROLL)
+    cfg, frames, poses = scroll_inputs()
+    require(cfg.display_glb_edt and cfg.display_glb_ogm, ph, "streaming is off")
+    mapper, recs, caught = run_scroll(dev, cfg, frames, poses, wrappers.values())
+    launches = {k: w.launches for k, w in wrappers.items()}
+    cap_warn = [str(w.message) for w in caught if issubclass(w.category, CapacityWarning)]
+    for r in recs:
+        emit({"phase": ph, **{k: (round(v, 4) if isinstance(v, float) else v)
+                             for k, v in r.items() if k != "out_sha"}})
+
+    # the per-tick streaming copy: extraction of 64 columns + copy to the host
+    from gie_mapping_tpu_torch.map_state import stream_extract
+
+    cb = cfg.canvas_blocks
+    k_cols = mapper._stream_k_cols
+    changed = torch.ones(cb, dtype=torch.bool, device=dev)
+    carry = torch.zeros(cb, dtype=torch.bool, device=dev)
+    host = torch.empty((k_cols * cb[2], 512, 3), dtype=torch.int32, pin_memory=True)
+
+    def tick():
+        rows = stream_extract(mapper.state, changed, carry, 0, cfg=cfg,
+                              k_cols=k_cols)[2]
+        host.copy_(rows, non_blocking=True)
+
+    saved = dict(launches)
+    stream_tick_ms = cuda_ms(tick, 20)
+    for k, w in wrappers.items():
+        w.launches = saved[k]
+
+    st = state_to_numpy(mapper.state)
+    edt_bad, kept = edt_mismatch(st)
+    origins_ok = [r["origin"] for r in recs] == ref["origin"].tolist()
+    out_match = sum(r["out_sha"] == str(ref["out_sha"][i]) for i, r in enumerate(recs))
+    traffic_ok = ([r["exits"] for r in recs] == ref["exits"].tolist()
+                  and [r["enters"] for r in recs] == ref["enters"].tolist()
+                  and [r["n_arch"] for r in recs] == ref["n_arch"].tolist())
+    sha_ok = state_digest(st) == str(ref["state_sha"])
+    mirror_ok = mapper.mirror.digest() == str(ref["mirror_sha"])
+    scroll_ms = [r["ms"] for r in recs[1:] if r["scrolled"]]
+    other_ms = [r["ms"] for r in recs[1:] if not r["scrolled"]]
+    emit({"phase": ph, "ok": True, "launches": launches, "scipy_mismatch": edt_bad,
+          "kept_outside_canvas": kept,
+          "origins_match": origins_ok, "frames_bitwise": out_match,
+          "frames": len(recs), "traffic_match": traffic_ok,
+          "state_sha_match": sha_ok, "mirror_sha_match": mirror_ok,
+          "mirror_blocks": len(mapper.mirror), "capacity": mapper.capacity_report(),
+          "capacity_warnings": cap_warn,
+          "ms_scroll_frames_mean": round(float(np.mean(scroll_ms)), 4),
+          "ms_other_frames_mean": round(float(np.mean(other_ms)), 4),
+          "n_scroll_frames": len(scroll_ms), "n_other_frames": len(other_ms),
+          "host_ingest_ms_mean": round(float(np.mean([r["ingest_ms"] for r in recs[1:]])), 4),
+          "stream_tick_ms": round(stream_tick_ms, 4)})
+    require(all(v > 0 for v in launches.values()), ph,
+            f"a kernel of the path never launched: {launches}")
+    require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
+    require(edt_bad == 0, ph, f"canvas dist_sq differs from scipy at {edt_bad} voxels")
+    require(origins_ok, ph, "canvas origins differ from the JAX reference")
+    require(traffic_ok, ph, "scroll traffic (exits, enters, n_arch) differs "
+            "from the JAX reference")
+    require(out_match == len(recs), ph,
+            f"only {out_match} of {len(recs)} frames match the JAX reference")
+    require(sha_ok, ph, "final state differs from the JAX reference")
+    require(mirror_ok, ph, "host mirror differs from the JAX reference")
+    return launches
+
+
 def phase_profile(dev, frames, poses, out_dir=None):
-    """torch.profiler over the frame loop of a second slice run: device
-    time by kernel, launches, and the device's idle share of the loop."""
+    """torch.profiler over the frame loop of a second run of each path:
+    device time by kernel, launches, and the device's idle share of the
+    loop."""
     from torch.profiler import ProfilerActivity, profile
 
-    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
-    _, recs = run_slice(dev, frames, poses, loop_ctx=prof)
-    loop_ms = sum(r["wall_ms"] for r in recs)
-    rows, dev_total, launches = [], 0.0, 0
-    for ev in prof.key_averages():
-        t = getattr(ev, "self_device_time_total", 0.0)
-        if t > 0 and ev.device_type.name == "CUDA":
-            rows.append((t / 1e3, ev.key, ev.count))
-            dev_total += t / 1e3
-            launches += ev.count
-    rows.sort(reverse=True)
-    if out_dir:
-        os.makedirs(out_dir, exist_ok=True)
-        prof.export_chrome_trace(os.path.join(out_dir, "slice_trace.json"))
-    emit({"phase": "profile", "frames": len(recs),
-          "loop_wall_ms": round(loop_ms, 3),
-          "device_busy_ms": round(dev_total, 3),
-          "device_idle_share": round(1 - dev_total / loop_ms, 4) if loop_ms else None,
-          "device_launches": launches,
-          "top": [{"name": k[:70], "ms": round(t, 3), "count": c}
-                  for t, k, c in rows[:30]]})
+    runs = {"slice": lambda ctx: run_slice(dev, frames, poses, loop_ctx=ctx)[1]}
+    sc = scroll_inputs()
+    runs["scroll"] = lambda ctx: run_scroll(dev, *sc, loop_ctx=ctx)[1]
+    for name, run in runs.items():
+        prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        recs = run(prof)
+        loop_ms = sum(r["wall_ms"] for r in recs)
+        rows, dev_total, launches = [], 0.0, 0
+        for ev in prof.key_averages():
+            t = getattr(ev, "self_device_time_total", 0.0)
+            if t > 0 and ev.device_type.name == "CUDA":
+                rows.append((t / 1e3, ev.key, ev.count))
+                dev_total += t / 1e3
+                launches += ev.count
+        rows.sort(reverse=True)
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            prof.export_chrome_trace(os.path.join(out_dir, f"{name}_trace.json"))
+        emit({"phase": "profile", "path": name, "frames": len(recs),
+              "loop_wall_ms": round(loop_ms, 3),
+              "device_busy_ms": round(dev_total, 3),
+              "device_idle_share": round(1 - dev_total / loop_ms, 4) if loop_ms else None,
+              "device_launches": launches,
+              "host_ingest_ms": round(sum(r.get("ingest_ms", 0.0) for r in recs), 3),
+              "top": [{"name": k[:70], "ms": round(t, 3), "count": c}
+                      for t, k, c in rows[:30]]})
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--out", help="also write the JSON lines and the build log here")
     ap.add_argument("--profile", action="store_true",
-                    help="add a torch.profiler pass over a second slice run")
+                    help="add a torch.profiler pass over a second run of each path")
     args = ap.parse_args(argv)
 
     import torch
@@ -459,6 +785,8 @@ def main(argv=None) -> int:
         results: dict = {}
         carve_bad = phase_kernels(dev, results)
         launches, frames, poses = phase_slice(dev, carve_bad)
+        scroll_launches = phase_scroll(dev, all_wrappers())
+        launches = {k: launches.get(k, 0) + v for k, v in scroll_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)
     except PhaseError as exc:
@@ -480,6 +808,16 @@ def main(argv=None) -> int:
         "envelope_mid": ("csrc/envelope.cu",
                          "gie_mapping_tpu/ops/pallas/envelope.py:719"),
         "carve": ("csrc/carve.cu", "gie_mapping_tpu/ops/pallas/carve.py:89"),
+        "shift_canvas": ("csrc/shift.cu",
+                         "gie_mapping_tpu/ops/pallas/blockrows.py:326"),
+        "gather_block_rows": ("csrc/blockrows.cu",
+                              "gie_mapping_tpu/ops/pallas/blockrows.py:59"),
+        "scatter_block_rows": ("csrc/blockrows.cu",
+                               "gie_mapping_tpu/ops/pallas/blockrows.py:101"),
+        "gather_archive_rows": ("csrc/blockrows.cu",
+                                "gie_mapping_tpu/ops/pallas/blockrows.py:179"),
+        "scatter_archive_rows": ("csrc/blockrows.cu",
+                                 "gie_mapping_tpu/ops/pallas/blockrows.py:230"),
     }
     emit({"kernels": [
         {"name": k, "route": "cuda", "source": "gie_mapping_tpu_torch/" + src,

@@ -9,8 +9,8 @@ Layer map:
   ops/       sensor model, fusion, EDT chain, frontiers
   ops/kernels/  wrappers of the hand-written CUDA kernels in csrc/, each
              beside its plain PyTorch version (used for CPU tensors)
-  map_state  canvas + archive state, fresh-map placement
-  runtime/   synthetic worlds (numpy)
+  map_state  canvas + archive state, the canvas scroll, stream extraction
+  runtime/   synthetic worlds and the host mirror of streamed blocks (numpy)
   utils/     config, geometry, constants
 """
 

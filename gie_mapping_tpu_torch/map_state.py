@@ -6,9 +6,15 @@ representational change: the archive `a_packed` holds its uint32 words as
 an int32 bit pattern, because PyTorch's uint32 arithmetic is thin;
 `state_to_numpy` / `state_from_numpy` convert at the boundary.
 
-The canvas scroll (archive I/O, canvas shift, coc re-anchor) is not ported
-yet.  `place_fresh` covers the one scroll every run makes, the first
-placement of a fresh map, which moves no data.
+The canvas scroll (`_do_scroll`) runs one design for every shift, the JAX
+package's compacted block-column path: exiting block-columns are gathered
+out of the packed canvas and written to the archive, the canvas shifts in
+one pass with the coc re-anchor fused in, and entering blocks are gathered
+from the archive and written into the shifted canvas.  The row copies and
+the shift are the hand-written kernels of ops/kernels/blockrows.py and
+ops/kernels/shift.py.  The JAX package's dense and XLA-row arms, its static
+z-shift switch and its parking column are TPU workarounds and are not
+carried; results do not depend on the arm.
 """
 from __future__ import annotations
 
@@ -18,6 +24,9 @@ import hashlib
 import numpy as np
 import torch
 
+from .ops.kernels.blockrows import (gather_archive_rows, gather_block_rows,
+                                   scatter_archive_rows, scatter_block_rows)
+from .ops.kernels.shift import shift_canvas
 from .utils.config import MapConfig
 from .utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_UNKNOWN
 
@@ -186,39 +195,277 @@ def shift_fill(arr: torch.Tensor, shifts, fill) -> torch.Tensor:
     return out
 
 
-def is_fresh(state: MapState) -> bool:
-    """True while no block was ever allocated and nothing was archived: the
-    canvas then holds only defaults (host sync)."""
-    return not bool(state.present.any()) and int(state.n_arch) == 0
+def _dense_to_blocks(arr: torch.Tensor, canvas_blocks) -> torch.Tensor:
+    """[X, Y, Z, ...] -> [bx, by, bz, 8, 8, 8, ...] (a view)."""
+    bx, by, bz = canvas_blocks
+    extra = tuple(arr.shape[3:])
+    arr = arr.reshape((bx, VB_WIDTH, by, VB_WIDTH, bz, VB_WIDTH) + extra)
+    return arr.permute((0, 2, 4, 1, 3, 5) + tuple(range(6, arr.dim())))
 
 
-def place_fresh(state: MapState, new_origin_blk, cfg: MapConfig):
-    """Move a FRESH map's canvas to `new_origin_blk` (block coords).
+def _rows3(rows):
+    """[..., 1536] flat word-rows -> [..., 512, 3] per-voxel view (a
+    tensor or a numpy array)."""
+    return rows.reshape(tuple(rows.shape[:-1]) + (VB_SIZE_, 3))
 
-    The JAX package's scroll (map_state.py::_do_scroll) changes exactly
-    three fields of a fresh map: origin_blk, dmax_cell (shifted by two cells
-    per block, -1 fill) and p1c_ok (False).  Nothing exits (no present
-    block) and nothing enters (empty archive).  Returns (state, enter_shift
-    int numpy [3] in voxels) — the shift the frame's change gate needs.
 
-    Raises NotImplementedError for any other state: moving data is the
-    canvas scroll, which the port does not have yet."""
-    if not is_fresh(state):
-        raise NotImplementedError(
-            "canvas scroll of a populated map is not ported yet "
-            "(gie_mapping_tpu/map_state.py::_do_scroll); the port only "
-            "places a fresh map")
+def shift_packed_coc(rows: torch.Tensor, delta: torch.Tensor) -> torch.Tensor:
+    """Re-anchor the packed coc fields of rows [..., 3] by adding delta
+    [..., 3] (broadcastable); the COC_INVALID16 sentinel (read from coc_x)
+    passes through.  Archive rows anchor cocs to their own block origin,
+    canvas voxels to the canvas origin."""
+    w1 = rows[..., 1].to(torch.int64) & 0xFFFFFFFF
+    w2 = rows[..., 2].to(torch.int64) & 0xFFFFFFFF
+    s16 = lambda v: (v ^ 0x8000) - 0x8000
+    cx, cy, cz = s16(w1 & 0xFFFF), s16((w1 >> 16) & 0xFFFF), s16(w2 & 0xFFFF)
+    valid = cx != int(COC_INVALID16)
+    d = delta.to(torch.int64)
+    inv = int(COC_INVALID16)
+    nx = torch.where(valid, cx + d[..., 0], inv)
+    ny = torch.where(valid, cy + d[..., 1], inv)
+    nz = torch.where(valid, cz + d[..., 2], inv)
+    n1 = (nx & 0xFFFF) | ((ny & 0xFFFF) << 16)
+    return torch.stack([rows[..., 0], _u32_to_i32(n1), (nz & 0xFFFF).to(torch.int32)],
+                       dim=-1)
+
+
+def _block_pos_vox(linear_ids: torch.Tensor, canvas_blocks) -> torch.Tensor:
+    """Canvas voxel position int32 [..., 3] of linear block ids
+    (bx * cby * cbz + by * cbz + bz order)."""
+    cby, cbz = canvas_blocks[1], canvas_blocks[2]
+    ids = linear_ids.to(torch.int32)
+    bx = ids // (cby * cbz)
+    by = (ids // cbz) % cby
+    bz = ids % cbz
+    return torch.stack([bx, by, bz], dim=-1) * VB_WIDTH
+
+
+def shift_block_mask(m: torch.Tensor, shift) -> torch.Tensor:
+    """Move a [bx, by, bz] block mask with a canvas scroll by the block
+    shift (host ints): new index i holds old index i + shift; exposed
+    entries become False."""
+    return shift_fill(m, shift, False)
+
+
+def _arch_directory(keys, n_arch, origin_blk, canvas_blocks) -> torch.Tensor:
+    """Archive-slot directory int32 [bx, by, bz] over the canvas at
+    origin_blk (-1 where no active archive row holds the block)."""
+    B = keys.shape[0]
+    dev = keys.device
+    cbx, cby, cbz = canvas_blocks
+    nb = cbx * cby * cbz
+    rel = keys - origin_blk.to(torch.int32)[None, :]
+    shape = torch.tensor(canvas_blocks, dtype=torch.int32, device=dev)
+    active = torch.arange(B, dtype=torch.int32, device=dev) < n_arch
+    inside = ((rel >= 0) & (rel < shape)).all(-1) & active
+    flat = (rel[:, 0] * cby + rel[:, 1]) * cbz + rel[:, 2]
+    idx = torch.where(inside, flat, nb).to(torch.int64)
+    directory = torch.full((nb + 1,), -1, dtype=torch.int32, device=dev)
+    # active archive keys are unique; entries outside the canvas all land on
+    # the dropped slot nb
+    directory.scatter_(0, idx, torch.arange(B, dtype=torch.int32, device=dev))
+    return directory[:nb].reshape(canvas_blocks)
+
+
+def _compact_ids(flags_flat: torch.Tensor, s_max: int):
+    """Indices of the (at most s_max) set flags in ascending order, via one
+    sort (no host sync).  Returns (ids int32 [s_max] (0 where invalid),
+    valid bool [s_max])."""
+    nb = flags_flat.shape[0]
+    rank = torch.arange(nb, dtype=torch.int32, device=flags_flat.device)
+    key = torch.where(flags_flat, rank, nb)
+    ids = torch.sort(key).values[:s_max]
+    valid = ids < nb
+    return torch.where(valid, ids, 0), valid
+
+
+def _packed_defaults(Z: int, device) -> torch.Tensor:
+    """The packed default word pattern of one (x, y) canvas line, int32 [3Z]."""
+    return torch.from_numpy(np.tile(_PACKED_DEFAULT, Z).view(np.int32)).to(device)
+
+
+def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
+               compact_cols: int | None = None,
+               old_origin_blk=None) -> MapState:
+    """Shift the resident canvas to `new_origin_blk` (three host ints).
+
+    Outgoing present blocks are archived (overwriting the archive row that
+    already holds the same key, else appended in linear block order; rows
+    beyond max_blocks are dropped and counted); the exposed region resets
+    to defaults and is refilled from the archive where it holds the block.
+    compact_cols bounds the block-columns that exit or enter (the host's
+    bucket; default every column).  old_origin_blk is the current origin as
+    host ints when the caller knows it (else it is read from the state).
+
+    The input state is consumed: its archive `a_packed` is updated in place."""
+    cb = cfg.canvas_blocks
+    cbx, cby, cbz = cb
+    X, Y, Z = cfg.canvas_size
+    B = state.arch_keys.shape[0]
+    dev = state.present.device
     new = np.asarray(new_origin_blk, np.int64).reshape(3)
-    old = state.origin_blk.cpu().numpy().astype(np.int64)
+    old = (state.origin_blk.cpu().numpy() if old_origin_blk is None
+           else np.asarray(old_origin_blk)).astype(np.int64).reshape(3)
     shift = new - old
-    state = dataclasses.replace(
-        state,
-        origin_blk=torch.as_tensor(new.astype(np.int32),
-                                   device=state.origin_blk.device),
-        dmax_cell=shift_fill(state.dmax_cell, shift * 2, -1),
-        p1c_ok=torch.zeros((), dtype=torch.bool, device=state.p1c_ok.device),
-    )
-    return state, (shift * VB_WIDTH).astype(np.int32)
+    ncols = cbx * cby
+    compact_cols = min(compact_cols or ncols, ncols)
+    old_t = torch.as_tensor(old.astype(np.int32), device=dev)
+    new_t = torch.as_tensor(new.astype(np.int32), device=dev)
+
+    # ---- 1. archive outgoing present blocks -----------------------------
+    out_ax = []
+    for a, n in enumerate(cb):
+        p = torch.arange(n, device=dev) - int(shift[a])
+        out_ax.append((p < 0) | (p >= n))
+    exits = (out_ax[0][:, None, None] | out_ax[1][None, :, None]
+             | out_ax[2][None, None, :]) & state.present
+    old_dir = _arch_directory(state.arch_keys, state.n_arch, old_t, cb)
+    have_slot = (old_dir >= 0).reshape(-1)
+    exits_f = exits.reshape(-1)
+    need_new = exits_f & ~have_slot
+    order = torch.cumsum(need_new.to(torch.int32), 0, dtype=torch.int32) - 1
+    slot_new = state.n_arch + order
+    ok_new = need_new & (slot_new < B)
+    slot = torch.where(have_slot, old_dir.reshape(-1),
+                       torch.where(ok_new, slot_new, B))
+    slot = torch.where(exits_f, slot, B)  # only outgoing blocks write
+
+    bidx_all = torch.arange(cbx * cby * cbz, dtype=torch.int32, device=dev)
+    abs_key = _block_pos_vox(bidx_all, cb) // VB_WIDTH + old_t[None, :]
+    keys_ext = torch.cat([state.arch_keys, state.arch_keys[:1]])
+    keys_ext[slot.to(torch.int64)] = abs_key  # row B collects the non-writes
+    new_keys = keys_ext[:B]
+    n_need = need_new.sum(dtype=torch.int32)
+    granted = torch.minimum(n_need, B - state.n_arch)
+    dropped = n_need - granted
+
+    packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
+    jz = torch.arange(cbz, dtype=torch.int32, device=dev)
+    # archive rows anchor cocs to their OWN block origin
+    cids, cidv = _compact_ids(exits.any(2).reshape(-1), compact_cols)
+    crows = gather_block_rows(packed, cids, cb)
+    bidx = cids[:, None] * cbz + jz[None, :]
+    crows = shift_packed_coc(
+        crows, -_block_pos_vox(bidx.reshape(-1), cb)[:, None, :])
+    cslot = torch.where(cidv[:, None], slot[bidx.to(torch.int64)], B).reshape(-1)
+    aval = cslot < B
+    a_packed = scatter_archive_rows(state.a_packed, crows,
+                                    torch.where(aval, cslot, 0),
+                                    aval.to(torch.int32))
+    n_arch = state.n_arch + granted
+
+    # ---- 2. one-pass shift of the canvas, cocs re-anchored --------------
+    packed = shift_canvas(packed.reshape(X, Y, 3 * Z),
+                          _packed_defaults(Z, dev), shift).reshape(X, Y, Z, 3)
+    present = shift_fill(state.present, shift, False)
+    # the per-cell dist bound rolls with the canvas (a block is 2 cells);
+    # exposed cells reset to -1, restored cells get the conservative max
+    dmax_cell = shift_fill(state.dmax_cell, shift * 2, -1)
+
+    # ---- 3. load entering blocks from the archive ------------------------
+    new_dir = _arch_directory(new_keys, n_arch, new_t, cb)
+    entering = ~present & (new_dir >= 0)
+    gslot = torch.where(entering, new_dir, 0).reshape(-1)
+    ent2 = entering
+    for ax in range(3):
+        ent2 = ent2.repeat_interleave(2, dim=ax)
+    dmax_cell = torch.where(ent2, EMPTY_VALUE, dmax_cell)
+
+    cids2, cidv2 = _compact_ids(entering.any(2).reshape(-1), compact_cols)
+    bidx2 = (cids2[:, None] * cbz + jz[None, :]).to(torch.int64)
+    valid_b = entering.reshape(-1)[bidx2] & cidv2[:, None]
+    slot_b = torch.where(valid_b, gslot[bidx2], 0).reshape(-1)
+    grows = gather_archive_rows(a_packed, slot_b)
+    # entering rows re-anchor block-relative -> new-canvas-relative
+    grows = shift_packed_coc(grows, _block_pos_vox(bidx2.reshape(-1), cb)[:, None, :])
+    packed = scatter_block_rows(packed, grows, cids2,
+                                valid_b.reshape(-1).to(torch.int32), cb)
+    present = present | entering
+
+    occ_val, vox_type, dist_sq, coc = unpack_voxels(packed)
+    return dataclasses.replace(
+        state, origin_blk=new_t, occ_val=occ_val, vox_type=vox_type,
+        dist_sq=dist_sq, coc=coc, present=present, arch_keys=new_keys,
+        n_arch=n_arch, a_packed=a_packed,
+        arch_dropped=state.arch_dropped + dropped, dmax_cell=dmax_cell,
+        p1c_ok=torch.zeros((), dtype=torch.bool, device=dev))
+
+
+def scroll_canvas(state: MapState, new_origin_blk, cfg: MapConfig,
+                  compact_cols: int | None = None,
+                  old_origin_blk=None) -> MapState:
+    """Shift the resident canvas to a new origin (host ints); a zero shift
+    returns the state unchanged.  See _do_scroll."""
+    old = (state.origin_blk.cpu().numpy() if old_origin_blk is None
+           else np.asarray(old_origin_blk))
+    if np.array_equal(np.asarray(new_origin_blk).reshape(3), old.reshape(3)):
+        return state
+    return _do_scroll(state, new_origin_blk, cfg, compact_cols, old)
+
+
+def stream_extract(state: MapState, changed_blk, carry_blk, rot: int = 0, *,
+                   cfg: MapConfig, k_cols: int):
+    """Compact changed voxel blocks into archive-format rows for host
+    streaming (the JAX package's stream_extract): the changed set, OR-ed
+    with the carry of earlier ticks, is served by (x, y) block-column, at
+    most k_cols columns per tick in the rotated order (rank - rot) mod
+    ncols, via one sort: key = rot_rank * ncols + rank, and a column is
+    served iff its key <= the k-th smallest.
+
+    Returns (col_ids int32 [k], col_valid bool [k], rows int32
+    [k * cbz, 512, 3], blk_mask bool [k, cbz], leftover bool [bx, by, bz])."""
+    cbx, cby, cbz = cb = cfg.canvas_blocks
+    ncols = cbx * cby
+    dev = changed_blk.device
+    want = changed_blk | carry_blk
+    col_changed = want.any(2).reshape(-1)
+    rank = torch.arange(ncols, dtype=torch.int32, device=dev)
+    rot_rank = torch.remainder(rank - int(rot), ncols)
+    big = ncols * ncols
+    key = torch.where(col_changed, rot_rank * ncols + rank, big)
+    skey = torch.sort(key).values[:k_cols]
+    valid = skey < big
+    ids = torch.where(valid, skey % ncols, 0)
+    served = col_changed & (key <= skey[k_cols - 1])
+    leftover = want & ~served.reshape(cbx, cby, 1)
+    packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
+    rows = gather_block_rows(packed, ids, cb)
+    blk_mask = want.reshape(ncols, cbz)[ids.to(torch.int64)] & valid[:, None]
+    return ids, valid, rows, blk_mask, leftover
+
+
+def np_scroll_counts(present_before, shift_blk, arch_keys, n_arch,
+                     new_origin_blk):
+    """Host-side (numpy) count of one scroll's block traffic, from the
+    present mask before it and the archive after it: (exiting present
+    blocks, blocks entering from the archive)."""
+    present = np.asarray(present_before, bool)
+    cb = present.shape
+    s = [int(v) for v in shift_blk]
+    stay = np.zeros_like(present)
+    src = tuple(slice(max(0, v), min(n, n + v)) for v, n in zip(s, cb))
+    dst = tuple(slice(max(0, -v), min(n, n - v)) for v, n in zip(s, cb))
+    if all(d.start < d.stop for d in dst):
+        stay[dst] = present[src]
+    exits = int(present.sum()) - int(stay.sum())
+    rel = np.asarray(arch_keys)[:int(n_arch)] - np.asarray(new_origin_blk)
+    inside = np.all((rel >= 0) & (rel < np.asarray(cb)), axis=-1)
+    held = np.zeros(cb, bool)
+    held[tuple(rel[inside].T)] = True
+    return exits, int((held & ~stay).sum())
+
+
+def np_unpack_voxels(rows: np.ndarray):
+    """Host-side unpack of packed uint32 [..., 3] rows (numpy; for the
+    streaming consumer)."""
+    w0 = rows[..., 0]
+    dist = (w0 & 0xFFFFF).astype(np.int32)
+    occ = ((w0 >> 20) & 0xFF).astype(np.uint8)
+    typ = ((w0 >> 28) & 0xF).astype(np.int8)
+    cx = (rows[..., 1] & 0xFFFF).astype(np.uint16).view(np.int16)
+    cy = ((rows[..., 1] >> 16) & 0xFFFF).astype(np.uint16).view(np.int16)
+    cz = (rows[..., 2] & 0xFFFF).astype(np.uint16).view(np.int16)
+    return occ, typ, dist, np.stack([cx, cy, cz], axis=-1)
 
 
 def canvas_geometry(cfg: MapConfig, pvt: np.ndarray, motion=None):

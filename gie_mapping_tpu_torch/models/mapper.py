@@ -1,28 +1,29 @@
 """VolumetricMapper of the PyTorch port: the engine's user entry point.
 
 Counterpart of gie_mapping_tpu/models/mapper.py for the point-cloud frame:
-`process_pointcloud` (sensor->world transform, projective carve, merge),
-`stage_pointcloud`, `warmup` and the per-frame output.  Not ported yet:
-the other three sensors, changed-block streaming to the host mirror, the
-batched replay API, checkpoints, the capacity monitor, and every canvas
-scroll after the first placement of a fresh map (`_run` raises
-NotImplementedError when the robot leaves the canvas's hysteresis box).
+`process_pointcloud` (sensor->world transform, projective carve, the
+host-gated canvas scroll, merge), `stage_pointcloud`, `warmup`, the
+per-frame output, changed-block streaming to the host mirror
+(`_stream` / `flush_stream`) and the capacity monitor (`CapacityWarning`).
+Not ported yet: the other three sensors, the batched replay API and
+checkpoints.
 """
 from __future__ import annotations
 
 import time
+import warnings
 from typing import Optional
 
 import numpy as np
 import torch
 
-from ..map_state import MapState, canvas_geometry, place_fresh
+from ..map_state import MapState, canvas_geometry, shift_block_mask, stream_extract
 from ..ops import raycast as rc
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
 from ..utils.constants import VB_WIDTH, VOX_UNKNOWN
-from .pipeline import merge_frame
+from .pipeline import merge_frame, scroll_step
 
 
 class FrameOutput:
@@ -59,6 +60,12 @@ class FrameOutput:
         """SeenDist payload: (d, s, o) per voxel."""
         return {"d": self.edt, "o": self.glb_type, "s": self.seen,
                 "origin": self.origin}
+
+
+class CapacityWarning(UserWarning):
+    """A capacity edge was hit: archive full (scrolled-out map data dropped)
+    or the streaming backlog not draining.  Raised as RuntimeError instead
+    with cfg.capacity_strict."""
 
 
 class _ExtObs:
@@ -106,6 +113,21 @@ class VolumetricMapper:
         self._fence_cache = None
         self.map_ct = 0
         self.last_output: Optional[FrameOutput] = None
+        self.mirror = None  # runtime.host_mirror.HostMirror, made on first use
+        # streaming: device carry of unserved blocks, round-robin offset,
+        # the in-flight tick (host copies + event), ingested on the next one
+        self._stream_carry = None
+        self._stream_rot = 0
+        self._stream_k_cols = 64
+        self._stream_pending = None
+        self.stream_ingested = 0  # blocks ingested into the mirror so far
+        # capacity monitor: each frame ingests the previous frame's scalars
+        self._cap_pending = None
+        self._cap_dropped_seen = 0
+        self._stream_stall = 0
+        self._stall_reported = False
+        self._last_leftover = 0
+        self._pinned: dict = {}
 
     def warmup(self, robot_pos=(0.0, 0.0, 0.0)):
         """Run one empty frame on a throwaway state so the first real frame
@@ -115,8 +137,8 @@ class VolumetricMapper:
         cfg = self.cfg
         pvt, origin_blk, off = self._frame_geometry(
             np.asarray(robot_pos, np.float32))
-        throwaway, shift = place_fresh(MapState.create(cfg, self.device),
-                                       origin_blk, cfg)
+        throwaway, shift = scroll_step(MapState.create(cfg, self.device),
+                                       origin_blk, cfg=cfg)
         fence, fence_on = self._fence_args(pvt)
         zeros8 = torch.zeros(cfg.local_size, dtype=torch.int8, device=self.device)
         zeros32 = torch.zeros(cfg.local_size, dtype=torch.int32, device=self.device)
@@ -163,16 +185,41 @@ class VolumetricMapper:
             self._fence_cache = (key, args)
         return self._fence_cache[1], bool(act.any())
 
+    def _scroll_compact_cols(self, origin_blk, prev):
+        """Block-column bucket that sizes this scroll's row buffers (the
+        column half of the JAX package's _scroll_compact_rows): an upper
+        bound on the columns that exit or enter, NCOLS - prod(cb.xy -
+        |shift.xy|), or every column when the shift has a z component,
+        rounded up to 32 / 64 / 128 / NCOLS so few shapes occur."""
+        shift = np.abs(np.asarray(origin_blk, np.int64) - np.asarray(prev, np.int64))
+        cb = np.asarray(self.cfg.canvas_blocks, np.int64)
+        ncols = int(cb[0] * cb[1])
+        if shift[2] != 0:
+            col_bound = ncols
+        else:
+            col_bound = ncols - int(np.maximum(cb[:2] - shift[:2], 0).prod())
+        return next((s for s in (32, 64, 128) if col_bound <= s <= ncols), ncols)
+
     def _run(self, inst_type, ray_count, pvt, origin_blk, off, *,
              input_pointcloud, t_sensor0):
         cfg = self.cfg
         fence, fence_on = self._fence_args(pvt)
         t_ogm = time.perf_counter()
         enter_shift = None
+        # host-gated scroll: only block-crossing frames pay it
         if self._origin is None or not np.array_equal(self._origin, origin_blk):
-            # place_fresh raises NotImplementedError unless the map is fresh
-            self.state, enter_shift = place_fresh(self.state, origin_blk, cfg)
+            prev = (self._origin if self._origin is not None
+                    else self.state.origin_blk.cpu().numpy())
+            cols = self._scroll_compact_cols(origin_blk, prev)
+            if self._stream_carry is not None:
+                # un-served streamed blocks are indexed in canvas coords:
+                # the carry moves with the canvas (exposed region: False)
+                self._stream_carry = shift_block_mask(
+                    self._stream_carry, np.asarray(origin_blk, np.int64) - prev)
             self._origin = np.asarray(origin_blk).copy()
+            self.state, enter_shift = scroll_step(
+                self.state, origin_blk, cfg=cfg, compact_cols=cols,
+                old_origin_blk=prev)
         self.state, out = merge_frame(
             self.state, inst_type, ray_count, pvt, origin_blk, off, fence,
             cfg=cfg, input_pointcloud=input_pointcloud, use_fence=fence_on,
@@ -184,7 +231,135 @@ class VolumetricMapper:
         result.ogm_time_ms = (t_ogm - t_sensor0) * 1e3
         result.edt_time_ms = (t_end - t_ogm) * 1e3
         self.last_output = result
+        if (cfg.display_glb_edt or cfg.display_glb_ogm) and (
+                self.map_ct % cfg.vis_interval == 0):
+            self._stream(out, origin_blk)
+        self._queue_capacity_guard(out["arch_dropped"])
         return result
+
+    # -- device -> host copies ---------------------------------------------
+    def _to_host(self, tag, tensors):
+        """Start copies of `tensors` to the host.  On a CUDA device they go
+        to pinned buffers (reused per tag; the previous copies under the
+        tag must have been consumed) without blocking, and an event marks
+        their end.  Returns (host tensors, event or None)."""
+        if self.device.type != "cuda":
+            return list(tensors), None
+        out = []
+        for i, t in enumerate(tensors):
+            key = (tag, i)
+            buf = self._pinned.get(key)
+            if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
+                buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                self._pinned[key] = buf
+            buf.copy_(t, non_blocking=True)
+            out.append(buf)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(self.device))
+        return out, ev
+
+    # -- capacity monitor ----------------------------------------------------
+    def _alert(self, msg: str):
+        if self.cfg.capacity_strict:
+            raise RuntimeError(msg)
+        if self.cfg.capacity_warn:
+            warnings.warn(msg, CapacityWarning, stacklevel=3)
+
+    def check_capacity(self):
+        """Ingest the previous frame's capacity scalars and report
+        saturation.  Called at every frame; call it after the last frame to
+        drain the last pending check."""
+        p, self._cap_pending = self._cap_pending, None
+        if p is None:
+            return
+        (dropped,), ev = p
+        if ev is not None:
+            ev.synchronize()
+        dropped = int(dropped)
+        if dropped > self._cap_dropped_seen:
+            n = dropped - self._cap_dropped_seen
+            self._cap_dropped_seen = dropped
+            self._alert(
+                f"archive capacity exhausted: {n} scrolled-out block(s) "
+                f"dropped this frame ({dropped} total) — map data is being "
+                f"lost; increase cfg.max_blocks (currently "
+                f"{self.cfg.max_blocks})")
+
+    def _queue_capacity_guard(self, arch_dropped):
+        self.check_capacity()
+        self._cap_pending = self._to_host("capacity", (arch_dropped,))
+
+    def capacity_report(self) -> dict:
+        """Current saturation counters (host view)."""
+        return {
+            "arch_dropped": self._cap_dropped_seen,
+            "n_arch": int(self.state.n_arch),
+            "stream_leftover": self._last_leftover,
+            "stream_stall_ticks": self._stream_stall,
+        }
+
+    # -- changed-block streaming ---------------------------------------------
+    def _stream(self, out, origin_blk):
+        """Changed-block device->host streaming into the host mirror, in two
+        phases: this tick runs the on-device compaction (stream_extract) and
+        starts the copies; the rows are ingested on the NEXT tick (or by
+        flush_stream), so the copy overlaps the following frames.  Columns
+        beyond the per-tick cap carry over in a device-resident mask."""
+        if self.mirror is None:
+            from ..runtime.host_mirror import HostMirror
+
+            self.mirror = HostMirror(self.cfg)
+        self.flush_stream()
+        cb = self.cfg.canvas_blocks
+        ncols = cb[0] * cb[1]
+        if self._stream_carry is None:
+            self._stream_carry = torch.zeros(cb, dtype=torch.bool,
+                                             device=self.device)
+        k_cols = min(self.cfg.stream_k_cols or min(ncols, 64), ncols)
+        ids, valid, rows, blk_mask, leftover = stream_extract(
+            self.state, out["changed_blk"], self._stream_carry,
+            self._stream_rot, cfg=self.cfg, k_cols=k_cols)
+        # round-robin service offset: bounded staleness when more columns
+        # change per tick than k_cols can serve
+        self._stream_rot = (self._stream_rot + k_cols) % ncols
+        self._stream_carry = leftover
+        self._stream_k_cols = k_cols
+        lo_cnt = leftover.any(2).sum(dtype=torch.int32)
+        host, ev = self._to_host("stream", (ids, valid, rows, blk_mask, lo_cnt))
+        self._stream_pending = (host, ev, np.asarray(origin_blk).copy())
+
+    def flush_stream(self):
+        """Ingest the in-flight streamed rows into the host mirror; returns
+        the number of blocks ingested."""
+        p, self._stream_pending = self._stream_pending, None
+        if p is None:
+            return 0
+        (ids, valid, rows, blk_mask, lo_cnt), ev, origin_blk = p
+        if ev is not None:
+            ev.synchronize()
+        n = self.mirror.ingest_rows(
+            ids.numpy(), valid.numpy(), rows.numpy().view(np.uint32),
+            blk_mask.numpy(), origin_blk)
+        self.stream_ingested += n
+        # backlog stall: a leftover the rotation cannot cycle through within
+        # stream_stall_ticks ticks, for that many consecutive ticks
+        self._last_leftover = int(lo_cnt)
+        k = self._stream_k_cols
+        if self._last_leftover > self.cfg.stream_stall_ticks * k:
+            self._stream_stall += 1
+            if (self._stream_stall >= self.cfg.stream_stall_ticks
+                    and not self._stall_reported):
+                self._stall_reported = True
+                self._alert(
+                    f"streaming backlog: {self._last_leftover} changed "
+                    f"block-column(s) undrained for {self._stream_stall} "
+                    f"consecutive ticks (service rate {k} cols/tick) — the "
+                    f"host mirror is falling behind; raise "
+                    f"cfg.stream_k_cols or lower cfg.vis_interval")
+        else:
+            self._stream_stall = 0
+            self._stall_reported = False
+        return n
 
     def _sensor_proj(self, proj: geo.Projection) -> geo.Projection:
         """ugv_height override: ground vehicles clamp the sensor origin's z."""

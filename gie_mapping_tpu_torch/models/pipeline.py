@@ -1,6 +1,7 @@
 """The per-frame map update of the PyTorch port (canvas_edt merge).
 
-Counterpart of gie_mapping_tpu/models/pipeline.py: block allocation,
+Counterpart of gie_mapping_tpu/models/pipeline.py: the host-gated canvas
+scroll (`scroll_step`, the scroll half of scroll_frame_step), block allocation,
 occupancy fusion, the change-gated exact canvas EDT (`_gated_canvas_merge`,
 with its slab menu, block P-test, phase-1 cache and zero-site constant
 fill), the ungated full EDT below `edt_gate_min_vox`, frontier marking and
@@ -23,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from ..map_state import COC_INVALID16, MapState
+from ..map_state import COC_INVALID16, MapState, scroll_canvas
 from ..ops.edt_batch import batch_edt, batch_edt_slab
 from ..ops.fusion import _fence_mask, _lowpass
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
@@ -449,3 +450,19 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         "ogm_changed": ogm_changed,
     }
     return state, outputs
+
+
+def scroll_step(state: MapState, new_origin_blk, *, cfg: MapConfig,
+                compact_cols: int | None = None, old_origin_blk=None):
+    """Host-gated canvas scroll, called only when the canvas origin moves
+    (the scroll half of the JAX package's scroll_frame_step).  Returns
+    (state', enter_shift): the frame's canvas move in voxels (host ints),
+    which merge_frame's change gate and changed-block mask take."""
+    old = (state.origin_blk.cpu().numpy() if old_origin_blk is None
+           else np.asarray(old_origin_blk))
+    new = np.asarray(new_origin_blk)
+    enter_shift = ((new.astype(np.int64) - old.astype(np.int64))
+                   * VB_WIDTH).astype(np.int32)
+    state = scroll_canvas(state, new, cfg, compact_cols=compact_cols,
+                          old_origin_blk=old)
+    return state, enter_shift

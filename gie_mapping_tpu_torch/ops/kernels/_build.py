@@ -1,7 +1,8 @@
 """Build and load the port's hand-written CUDA kernels.
 
-The sources in gie_mapping_tpu_torch/csrc/ compile with nvcc into ONE shared
-library with a plain C interface, loaded with ctypes.  The build happens at
+The sources in gie_mapping_tpu_torch/csrc/ compile with nvcc, one process per
+source, all started together, and link into ONE shared library with a plain
+C interface, loaded with ctypes.  The build happens at
 first use (never at import: this module is imported on machines without a
 GPU or a CUDA toolkit) into gie_mapping_tpu_torch/build/, under a name that
 hashes the sources and flags, so an edited source rebuilds and an unchanged
@@ -22,13 +23,13 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "build"
-SOURCES = ("phase1.cu", "envelope.cu", "carve.cu")
+SOURCES = ("phase1.cu", "envelope.cu", "carve.cu", "shift.cu", "blockrows.cu")
 HEADERS = ("common.cuh",)
 # --fmad=false: no multiply-add contraction anywhere; the carve's exactness
 # depends on every rounding step (see csrc/carve.cu).  -Xptxas=-v prints
 # registers and spills per kernel into the build log.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "--fmad=false", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -40,6 +41,11 @@ SIGNATURES = {
     "gie_envelope_mid": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
     "gie_carve": (_P, _P, _P, _P, _P) + (_I,) * 6 + (_F,) * 4 + (_I, _I)
                  + (_F,) * 6 + (_I, _I, _P),
+    "gie_shift_canvas": (_P, _P, _P) + (_I,) * 9 + (_P,),
+    "gie_gather_block_rows": (_P, _P, _P) + (_I,) * 5 + (_P,),
+    "gie_scatter_block_rows": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),
+    "gie_gather_archive_rows": (_P, _P, _P, _I, _I, _P),
+    "gie_scatter_archive_rows": (_P, _P, _P, _P, _I, _I, _P),
 }
 
 
@@ -77,20 +83,43 @@ def build() -> tuple[Path, float]:
         return so, 0.0
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     t0 = time.perf_counter()
-    # compile to a private name, then rename: a concurrent build never loads
-    # a half-written library
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", tmp,
-           *[str(CSRC / s) for s in SOURCES]]
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    nvcc = _nvcc()
+    work = Path(tempfile.mkdtemp(dir=BUILD_DIR))
     log = so.with_suffix(".log")
-    log.write_text(" ".join(cmd) + "\n" + res.stdout + res.stderr)
-    if res.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({res.returncode}); log: {log}\n"
-                           + res.stderr[-4000:])
-    os.replace(tmp, so)
+    lines = []
+    try:
+        # one nvcc per source, all at once; then one link.  The library is
+        # linked to a private name and renamed: a concurrent build never
+        # loads a half-written library
+        procs = []
+        for src in SOURCES:
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                   str(work / (src + ".o")), str(CSRC / src)]
+            procs.append((cmd, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        failed = []
+        for cmd, p in procs:
+            out, _ = p.communicate()
+            lines += [" ".join(cmd), out]
+            if p.returncode != 0:
+                failed.append((cmd[-1], p.returncode, out))
+        if not failed:
+            tmp = work / "lib.so"
+            cmd = [nvcc, "-shared", "-o", str(tmp),
+                   *[str(work / (s + ".o")) for s in SOURCES]]
+            res = subprocess.run(cmd, capture_output=True, text=True)
+            lines += [" ".join(cmd), res.stdout + res.stderr]
+            if res.returncode != 0:
+                failed.append(("link", res.returncode, res.stderr))
+        log.write_text("\n".join(lines))
+        if failed:
+            name, rc, out = failed[0]
+            raise RuntimeError(f"nvcc failed on {name} ({rc}); log: {log}\n"
+                               + out[-4000:])
+        os.replace(tmp, so)
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
     return so, time.perf_counter() - t0
 
 

@@ -167,3 +167,51 @@ def cow_lady_slice():
                      display_glb_ogm=False)
     world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
     return overrides, world, yaw_then_translate()
+
+
+def scroll_trajectory(start=(0.0, 0.0, 1.2), n_yaw=3, yaw_step=np.pi / 4,
+                      step_x=0.3, n_out=6, dz=0.8, n_back=6, teleport_x=20.0,
+                      n_after=1):
+    """(position, quaternion) poses that move the canvas every way a robot
+    can: `n_yaw` headings in place, `n_out` steps of +step_x m, one step of
+    +dz m in z, `n_back` steps of -step_x m (archived blocks re-enter), a
+    jump of +teleport_x m in x and one back, then `n_after` more -step_x
+    steps.  The heading stays the last yaw after the turn."""
+    quat = lambda yaw: (np.cos(yaw / 2), 0.0, 0.0, np.sin(yaw / 2))
+    q = quat((n_yaw - 1) * yaw_step)
+    pos = np.asarray(start, np.float32)
+    out = [(pos.copy(), quat(i * yaw_step)) for i in range(n_yaw)]
+
+    def step(d):
+        nonlocal pos
+        pos = (pos + np.asarray(d, np.float32)).astype(np.float32)
+        out.append((pos.copy(), q))
+
+    for _ in range(n_out):
+        step((step_x, 0.0, 0.0))
+    step((0.0, 0.0, dz))
+    for _ in range(n_back):
+        step((-step_x, 0.0, 0.0))
+    step((teleport_x, 0.0, 0.0))
+    step((-teleport_x, 0.0, 0.0))
+    for _ in range(n_after):
+        step((-step_x, 0.0, 0.0))
+    return out
+
+
+def cow_lady_scroll():
+    """(MapConfig overrides, world, poses) of the port's cow-lady scroll
+    path: the cow_lady preset at its own defaults (streaming on, 64
+    block-columns per tick) with 131072 points per frame, and a 26-pose
+    scroll_trajectory from (-2.5, 0, 1.2): 3 headings, 10 steps of +0.5 m
+    in x, +1.0 m in z, 10 steps back, a 25 m jump (beyond the 15.2 m
+    canvas) and back.  The world is the slice's corridor generator at 20 m
+    across with 24 pillars: in the slice's 8 m world every observed block
+    stays inside the 15.2 m canvas, so only a teleport would archive
+    anything.  Frame i's cloud is world.pointcloud(proj_i,
+    n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)."""
+    overrides = dict(max_raycast_points=COW_SLICE_RAYS)
+    world = BoxWorld.corridor(seed=11, n_pillars=24, extent=10.0, height=2.5)
+    return overrides, world, scroll_trajectory(
+        start=(-2.5, 0.0, 1.2), n_yaw=3, step_x=0.5, n_out=10, dz=1.0,
+        n_back=10, teleport_x=25.0, n_after=0)

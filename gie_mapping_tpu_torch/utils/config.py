@@ -45,8 +45,6 @@ PORTED_VALUES = {
     "edt_gate_pmode": "block",
     "merge_mode": "canvas_edt",
     "raycast_mode": "projective",
-    "display_glb_edt": False,
-    "display_glb_ogm": False,
     "profile_loc_rms": False,
     "profile_glb_rms": False,
 }

@@ -1,23 +1,33 @@
-"""Write tests/fixtures/torch_port_cow_ref.npz: the JAX package's results on
-the cow-lady point-cloud slice that chip_smoke.py drives through the PyTorch
-port on a GPU (the machine with the GPU has no JAX, so this file is the
-port's only link to the reference there).
+"""Write the JAX package's results on the cow-lady paths that chip_smoke.py
+drives through the PyTorch port on a GPU (the machine with the GPU has no
+JAX, so these files are the port's only link to the reference there):
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py [--only slice|scroll]
 
-Runs on the CPU in about a minute.  The slice is
-gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice (cow_lady preset,
-131072 points per frame, streaming off, 12 poses).  The script asserts the
-two properties the slice relies on: the canvas never moves after frame 0,
-and the frames take both a gated slab branch and the full EDT branch.
+tests/fixtures/torch_port_cow_ref.npz, the slice
+(gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
+131072 points per frame, streaming off, 12 poses), in about a minute on the
+CPU.  The script asserts the two properties the slice relies on: the
+canvas never moves after frame 0, and the frames take both a gated slab
+branch and the full EDT branch.  Per frame the file holds the canvas
+origin, the gate level, the count of each voxel type in the window output,
+the sum of valid dist_sq, the number of changed blocks and a sha256 of the
+window outputs; plus a sha256 of the final state (every MapState field).
 
-Per frame the file holds the canvas origin, the gate level, the count of
-each voxel type in the window output, the sum of valid dist_sq, the number
-of changed blocks and a sha256 of the window outputs; plus a sha256 of the
-final state (every MapState field).
+tests/fixtures/torch_port_cow_scroll_ref.npz, the scroll path
+(datasets.cow_lady_scroll: the cow_lady preset at its own defaults,
+streaming on, 26 poses that scroll in x both ways, in z and by a teleport
+beyond the canvas and back), in a few minutes.  Per frame it adds whether
+the canvas scrolled, the exiting and re-entering block counts, n_arch and
+the streaming leftover (block-columns); at the end the state sha256 and
+the digest of the host mirror after flush_stream (sorted keys, every
+field).  It asserts: at least 6 scrolls, one with both exits and archive
+re-entries, one in z, one teleport of at least the canvas, no archive drop,
+both gate branches, and a nonzero streaming leftover.
 """
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import sys
@@ -27,30 +37,37 @@ import numpy as np
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "torch_port_cow_ref.npz")
+OUT_SCROLL = os.path.join(HERE, "torch_port_cow_scroll_ref.npz")
 
 
-def main():
-    sys.path.insert(0, os.path.join(HERE, "..", ".."))
-    import jax
+def _state(mapper):
+    return {f.name: np.asarray(getattr(mapper.state, f.name))
+            for f in dataclasses.fields(mapper.state)}
 
-    jax.config.update("jax_platforms", "cpu")
+
+def run(path, overrides, world, poses, scroll):
     from gie_mapping_tpu.models.mapper import VolumetricMapper
     from gie_mapping_tpu.models.pipeline import _slab_menu
     from gie_mapping_tpu.utils import geometry as geo
     from gie_mapping_tpu.utils.config import cow_lady_config
-    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
-    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
-                                                        cow_lady_slice)
+    from gie_mapping_tpu_torch.map_state import (np_scroll_counts,
+                                                 output_digest, state_digest)
+    from gie_mapping_tpu_torch.runtime.datasets import COW_SLICE_RAYS
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
 
-    overrides, world, poses = cow_lady_slice()
     cfg = cow_lady_config(**overrides)
     n_menu = len(_slab_menu(cfg.canvas_size))
     mapper = VolumetricMapper(cfg)
     mapper.warmup(robot_pos=poses[0][0])
-    rec = {k: [] for k in ("origin", "gate_level", "type_counts",
-                           "dist_sum", "changed_blocks", "out_sha")}
+    keys = ["origin", "gate_level", "type_counts", "dist_sum",
+            "changed_blocks", "out_sha"]
+    if scroll:
+        keys += ["scrolled", "exits", "enters", "n_arch", "leftover"]
+    rec = {k: [] for k in keys}
     for i, (pos, quat) in enumerate(poses):
         t0 = time.time()
+        before = None if mapper._origin is None else mapper._origin.copy()
+        present = np.asarray(mapper.state.present)
         proj = geo.Projection.from_pose(pos, quat)
         pts = world.pointcloud(proj, n_rays=COW_SLICE_RAYS, max_range=8.0,
                                seed=i)
@@ -64,25 +81,75 @@ def main():
         rec["changed_blocks"].append(
             int(np.asarray(out.device("changed_blk")).sum()))
         rec["out_sha"].append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        msg = ""
+        if scroll:
+            scrolled = before is None or not np.array_equal(before, mapper._origin)
+            old = np.zeros(3, np.int64) if before is None else before
+            st = _state(mapper)
+            ex, en = np_scroll_counts(present, mapper._origin - old,
+                                      st["arch_keys"], st["n_arch"],
+                                      mapper._origin) if scrolled else (0, 0)
+            rec["scrolled"].append(scrolled)
+            rec["exits"].append(ex)
+            rec["enters"].append(en)
+            rec["n_arch"].append(int(st["n_arch"]))
+            rec["leftover"].append(int(np.asarray(mapper._stream_pending[5])))
+            msg = (f" scrolled {scrolled} exits {ex} enters {en} n_arch "
+                   f"{rec['n_arch'][-1]} leftover {rec['leftover'][-1]}")
         print(f"frame {i}: gate {out.gate_level} types "
               f"{rec['type_counts'][-1].tolist()} origin "
-              f"{rec['origin'][-1].tolist()} ({time.time() - t0:.1f} s)",
+              f"{rec['origin'][-1].tolist()}{msg} ({time.time() - t0:.1f} s)",
               flush=True)
     origins = np.stack(rec["origin"])
-    assert (origins == origins[0]).all(), "the canvas moved after frame 0"
     levels = np.asarray(rec["gate_level"])
     assert (levels < n_menu).any() and (levels == n_menu).any(), levels
-    state = {f.name: np.asarray(getattr(mapper.state, f.name))
-             for f in dataclasses.fields(mapper.state)}
-    np.savez_compressed(
-        OUT, origin=origins, gate_level=levels,
+    arrays = dict(
+        origin=origins, gate_level=levels,
         type_counts=np.stack(rec["type_counts"]).astype(np.int64),
         dist_sum=np.asarray(rec["dist_sum"], np.int64),
         changed_blocks=np.asarray(rec["changed_blocks"], np.int64),
         out_sha=np.asarray(rec["out_sha"]),
-        state_sha=np.asarray(state_digest(state)),
+        state_sha=np.asarray(state_digest(_state(mapper))),
         n_rays=np.asarray(COW_SLICE_RAYS))
-    print("written:", OUT, os.path.getsize(OUT), "bytes")
+    if not scroll:
+        assert (origins == origins[0]).all(), "the canvas moved after frame 0"
+    else:
+        mapper.flush_stream()
+        mapper.check_capacity()
+        scrolled = np.asarray(rec["scrolled"])
+        exits, enters = np.asarray(rec["exits"]), np.asarray(rec["enters"])
+        shifts = np.abs(np.diff(origins, axis=0))
+        assert scrolled[1:].sum() >= 6, scrolled
+        assert ((exits > 0) & (enters > 0)).any(), (exits, enters)
+        assert (shifts[:, 2] > 0).any(), shifts
+        assert (shifts >= np.asarray(cfg.canvas_blocks)).any(), shifts
+        assert mapper.capacity_report()["arch_dropped"] == 0
+        assert max(rec["leftover"]) > 0
+        for k in ("scrolled", "exits", "enters", "n_arch", "leftover"):
+            arrays[k] = np.asarray(rec[k], bool if k == "scrolled" else np.int64)
+        arrays["mirror_sha"] = np.asarray(mirror_digest(mapper.mirror.blocks))
+        arrays["mirror_blocks"] = np.asarray(len(mapper.mirror))
+        print("capacity:", mapper.capacity_report(), "mirror blocks:",
+              len(mapper.mirror))
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes")
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--only", choices=("slice", "scroll"))
+    args = ap.parse_args()
+    sys.path.insert(0, os.path.join(HERE, "..", ".."))
+    import jax
+
+    jax.config.update("jax_platforms", "cpu")
+    from gie_mapping_tpu_torch.runtime.datasets import (cow_lady_scroll,
+                                                        cow_lady_slice)
+
+    if args.only in (None, "slice"):
+        run(OUT, *cow_lady_slice(), scroll=False)
+    if args.only in (None, "scroll"):
+        run(OUT_SCROLL, *cow_lady_scroll(), scroll=True)
 
 
 if __name__ == "__main__":

@@ -59,7 +59,7 @@ def test_validation_matches():
 @pytest.mark.parametrize("override", [
     dict(merge_mode="relax"), dict(raycast_mode="dda"), dict(edt_mid=False),
     dict(edt_phase1="xla"), dict(edt_env_variant="base"),
-    dict(edt_gate_pmode="voxel"), dict(display_glb_edt=True),
+    dict(edt_gate_pmode="voxel"), dict(profile_glb_rms=True),
     dict(local_size_m=(10.0, 10.0, 0.1)),
 ])
 def test_unported_options_are_refused(override):
@@ -71,6 +71,16 @@ def test_unported_options_are_refused(override):
     assert tcfg.unported_options(cfg)
     with pytest.raises(NotImplementedError):
         VolumetricMapper(cfg)
+
+
+def test_cow_lady_defaults_construct():
+    """The cow-lady preset at its own defaults (streaming on) is on the
+    ported path."""
+    from gie_mapping_tpu_torch import create_mapper
+
+    m = create_mapper("cow_lady")
+    assert m.cfg.display_glb_edt and m.cfg.display_glb_ogm
+    assert not tcfg.unported_options(m.cfg)
 
 
 def test_port_never_imports_jax():

@@ -9,11 +9,15 @@ import numpy as np
 import pytest
 import torch
 
+from gie_mapping_tpu_torch import map_state as ms
 from gie_mapping_tpu_torch.ops import edt_batch as eb
 from gie_mapping_tpu_torch.ops import raycast as rc
+from gie_mapping_tpu_torch.ops.kernels import blockrows as kbr
 from gie_mapping_tpu_torch.ops.kernels import carve as kc
 from gie_mapping_tpu_torch.ops.kernels import envelope as ke
 from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+from gie_mapping_tpu_torch.ops.kernels import shift as ksh
+from gie_mapping_tpu_torch.utils.config import cow_lady_config
 
 pytestmark = pytest.mark.cuda
 
@@ -83,3 +87,65 @@ def test_carve_kernel_matches_plain(dev):
     for a, b in zip(kc.carve(depth, cnt, ep, pvt, origin, **kw),
                     kc.carve_plain(depth, cnt, ep, pvt, origin, **kw)):
         assert torch.equal(a, b)
+
+
+def _words(shape, seed):
+    rng = np.random.default_rng(seed)
+    w = rng.integers(0, 1 << 32, shape, dtype=np.uint64).astype(np.uint32)
+    w[rng.random(shape) < 0.1] |= 0x7FFF
+    return torch.from_numpy(w.view(np.int32))
+
+
+@pytest.mark.parametrize("shift", [(1, 0, 0), (1, -1, 0), (0, 0, -3),
+                                   (0, 0, 12), (-20, 0, 0)])
+def test_shift_kernel_matches_plain(dev, shift):
+    cv = _words((152, 152, 240), 1).to(dev)
+    dflt = torch.from_numpy(np.tile(ms._PACKED_DEFAULT, 80).view(np.int32)).to(dev)
+    assert torch.equal(ksh.shift_canvas(cv, dflt, shift),
+                       ksh.shift_canvas_plain(cv, dflt, shift))
+
+
+def test_blockrows_kernels_match_plain(dev):
+    cb = (19, 19, 10)
+    packed = _words((152, 152, 80, 3), 2).to(dev)
+    ids = torch.tensor([0, 360, 5, 5, 17], dtype=torch.int32, device=dev)
+    assert torch.equal(kbr.gather_block_rows(packed, ids, cb),
+                       kbr.gather_block_rows_plain(packed, ids, cb))
+    rows = _words((50, 512, 3), 3).to(dev)
+    tgt = torch.tensor([4, 1, 3, 3, 3], dtype=torch.int32, device=dev)
+    valid = (torch.arange(50, device=dev) % 3 == 0).to(torch.int32)
+    valid[20:] = 0
+    a = kbr.scatter_block_rows(packed.clone(), rows, tgt, valid, cb)
+    b = kbr.scatter_block_rows_plain(packed.clone(), rows, tgt, valid, cb)
+    assert torch.equal(a, b)
+    arch = _words((64, 1536), 4).to(dev)
+    aid = torch.tensor([7, 0, 7, 63], dtype=torch.int32, device=dev)
+    assert torch.equal(kbr.gather_archive_rows(arch, aid),
+                       kbr.gather_archive_rows_plain(arch, aid))
+    r4 = _words((4, 512, 3), 5).to(dev)
+    sid = torch.tensor([5, 0, 5, 9], dtype=torch.int32, device=dev)
+    v4 = torch.tensor([1, 1, 0, 1], dtype=torch.int32, device=dev)
+    assert torch.equal(kbr.scatter_archive_rows(arch.clone(), r4, sid, v4),
+                       kbr.scatter_archive_rows_plain(arch.clone(), r4, sid, v4))
+
+
+def test_do_scroll_on_gpu_matches_cpu(dev):
+    cfg = cow_lady_config(local_size_m=(4.0, 4.0, 1.6), max_blocks=512)
+    rng = np.random.default_rng(6)
+    st = ms.state_to_numpy(ms.MapState.create(cfg))
+    cs = cfg.canvas_size
+    st["occ_val"] = rng.integers(0, 255, cs, dtype=np.uint8)
+    st["vox_type"] = rng.integers(0, 4, cs).astype(np.int8)
+    st["dist_sq"] = rng.integers(0, 900, cs).astype(np.int32)
+    st["coc"] = rng.integers(-100, 100, cs + (3,)).astype(np.int16)
+    st["present"] = rng.random(cfg.canvas_blocks) < 0.7
+    old = np.zeros(3, np.int32)
+    a, b = ms.state_from_numpy(st), ms.state_from_numpy(st, dev)
+    for new in ((2, 0, 0), (0, -1, 1), (30, 0, 0), (0, 0, 0)):
+        new = np.asarray(new, np.int32)
+        a = ms._do_scroll(a, new, cfg, old_origin_blk=old)
+        b = ms._do_scroll(b, new, cfg, old_origin_blk=old)
+        old = new
+        ta, tb = ms.state_to_numpy(a), ms.state_to_numpy(b)
+        for k in ms.FIELDS:
+            np.testing.assert_array_equal(tb[k], ta[k], err_msg=k)

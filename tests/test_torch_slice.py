@@ -1,8 +1,7 @@
 """The PyTorch port's cow-lady point-cloud slice against the JAX package:
 VolumetricMapper.process_pointcloud frame by frame, bit for bit, on every
 MapState field and every output; a run that starts from a JAX state carried
-across; the committed golden point-cloud scenario; and the scroll the port
-does not have yet."""
+across; and the committed golden point-cloud scenario, which scrolls."""
 import dataclasses
 import os
 
@@ -122,10 +121,10 @@ def test_slice_from_carried_jax_state():
 GOLDEN_PC = os.path.join(os.path.dirname(__file__), "golden_pointcloud.npz")
 
 
-def test_golden_pointcloud_then_scroll_refused():
+def test_golden_pointcloud():
     """tests/test_golden.py's point-cloud scenario (an ungated canvas): its
-    frame 0 matches the committed golden; its frame 2 crosses the canvas
-    hysteresis, a scroll the port does not have yet, and must raise."""
+    frames 0 and 3 match the committed golden; frame 2 crosses the canvas
+    hysteresis, so frame 3 follows a scroll."""
     cfg = tcfg.cow_lady_config(local_size_m=(6.0, 6.0, 1.6), voxel_width=0.2,
                                cutoff_dist=2.0, max_blocks=4096,
                                max_raycast_points=4096,
@@ -133,20 +132,17 @@ def test_golden_pointcloud_then_scroll_refused():
     world = BoxWorld.corridor(seed=17, n_pillars=4, extent=3.5)
     ref = np.load(GOLDEN_PC)
     tm = TorchMapper(cfg)
-    poses = circular_trajectory(4, radius=1.0, height=0.8)
-    for i, proj in enumerate(poses[:2]):
+    origins = []
+    for i, proj in enumerate(circular_trajectory(4, radius=1.0, height=0.8)):
         pts = world.pointcloud(proj, n_rays=4096, max_range=4.0, seed=i)
         out = tm.process_pointcloud(proj, pts)
-        if i == 0:
-            assert out.gate_level == -1  # below edt_gate_min_vox: ungated
+        origins.append(tm._origin.copy())
+        assert out.gate_level == -1  # below edt_gate_min_vox: ungated
+        if i in (0, 3):
             for k in ("glb_type", "dist_sq", "coc"):
-                np.testing.assert_array_equal(getattr(out, k), ref[f"0/{k}"],
-                                              err_msg=k)
-    origin = tm._origin.copy()
-    pts = world.pointcloud(poses[2], n_rays=4096, max_range=4.0, seed=2)
-    with pytest.raises(NotImplementedError, match="scroll"):
-        tm.process_pointcloud(poses[2], pts)
-    np.testing.assert_array_equal(tm._origin, origin)
+                np.testing.assert_array_equal(getattr(out, k), ref[f"{i}/{k}"],
+                                              err_msg=f"frame {i} {k}")
+    assert not np.array_equal(origins[1], origins[2])  # frame 2 scrolled
 
 
 def test_state_roundtrip_and_packing():
