@@ -22,7 +22,8 @@ __version__ = "0.1.0"
 
 def create_mapper(case: str = "cow_lady", device=None, **overrides):
     """One-call engine construction for a case preset on `device`
-    ("cuda", "cpu", a torch.device; default CPU)."""
+    ("cuda", "cpu", a torch.device; default "cuda", which raises when no
+    card is available)."""
     from .models.mapper import VolumetricMapper
 
     return VolumetricMapper(load_config(case, **overrides), device=device)

@@ -6,9 +6,12 @@
 //     phase 2 along axis 0, reading phase 1's packed word;
 //   envelope_mid_pallas (_envelope_mid_3d + _envelope_mid_kernel):
 //     phase 3 along the middle axis of [B, N, L], so no transpose is needed
-//     between the phases.
+//     between the phases;
+//   envelope_pallas (_envelope_2d + _envelope_kernel): the generic axis-0
+//     envelope of [N, L] site costs with one separate payload (phase 2 of
+//     the 2-D, Z == 1 EDT), which is the middle-axis kernel with B = 1.
 //
-// Both compute, per output row x and lane l,
+// All three compute, per output row x and lane l,
 //   key[x, l] = min_i ( min((x - i)^2 + min(f[i, l], cap), cap) << idx_bits | i )
 //   pay[x, l] = payload[site(key), l]
 // with cap = (1 << (31 - idx_bits)) - 1.  The packed key is unique per site,
@@ -23,7 +26,8 @@
 // neighbouring lanes so each site row is one coalesced read per warp.  The
 // TPU kernel's band/tile-skip prologue is a speed-up only and is not needed
 // for exactness; shared-memory site tiles and a Felzenszwalb stack are later
-// work.
+// work.  The generic entry's call on a 100 x 100 2-D window is 1 M steps in
+// 100 x 1 CTAs: it is bound by launch latency, not by the card.
 #include "common.cuh"
 
 namespace {
@@ -91,6 +95,14 @@ GIE_EXPORT int gie_envelope_packed(const void* packed, void* key_out,
                                    int idx_bits, int yb, void* stream) {
   return launch(true, packed, nullptr, key_out, pay_out, 1, N, L, idx_bits,
                 yb, stream);
+}
+
+// Generic: f, payload int32 [N, L] (sites on axis 0) -> key, payload.
+GIE_EXPORT int gie_envelope(const void* f, const void* pay, void* key_out,
+                            void* pay_out, int N, int64_t L, int idx_bits,
+                            void* stream) {
+  return launch(false, f, pay, key_out, pay_out, 1, N, L, idx_bits, 0,
+                stream);
 }
 
 // Phase 3: f, payload int32 [B, N, L] (sites on axis 1) -> key, payload.

@@ -1,11 +1,13 @@
 """VolumetricMapper of the PyTorch port: the engine's user entry point.
 
-Counterpart of gie_mapping_tpu/models/mapper.py for the point-cloud frame:
+Counterpart of gie_mapping_tpu/models/mapper.py for two map makers:
 `process_pointcloud` (sensor->world transform, projective carve, the
-host-gated canvas scroll, merge), `stage_pointcloud`, `warmup`, the
+host-gated canvas scroll, merge) with `stage_pointcloud`, and
+`process_scan2d` (the 2-D LiDAR model, scroll, merge); `warmup`, the
 per-frame output, changed-block streaming to the host mirror
 (`_stream` / `flush_stream`) and the capacity monitor (`CapacityWarning`).
-Not ported yet: the other three sensors, the batched replay API and
+The mapper runs on the CUDA device unless it is given another.  Not ported
+yet: the depth-camera and multi-ring sensors, the batched replay API and
 checkpoints.
 """
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 
 from ..map_state import MapState, canvas_geometry, shift_block_mask, stream_extract
 from ..ops import raycast as rc
+from ..ops.scan_sensors import ScanParam, hokuyo_update
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
@@ -95,7 +98,9 @@ class _ExtObs:
 
 
 class VolumetricMapper:
-    """The mapping engine: feed poses + point clouds, read cost maps."""
+    """The mapping engine: feed poses + point clouds or 2-D scans, read cost
+    maps.  `device` defaults to "cuda" (an error without a card); pass
+    device="cpu" to run the kernels' plain versions on the CPU."""
 
     _SELF = object()  # sentinel: "use self._origin"
 
@@ -105,7 +110,12 @@ class VolumetricMapper:
             raise NotImplementedError(
                 "not ported to PyTorch yet: " + ", ".join(bad))
         self.cfg = cfg
-        self.device = torch.device(device) if device is not None else torch.device("cpu")
+        self.device = torch.device("cuda" if device is None else device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(
+                "VolumetricMapper runs on a CUDA device and none is "
+                "available; pass device=\"cpu\" to run the plain PyTorch "
+                "versions of its kernels on the CPU")
         self.state = MapState.create(cfg, self.device)
         self.ext_obs = _ExtObs(cfg)
         self._origin = None  # host mirror of the canvas origin
@@ -234,7 +244,9 @@ class VolumetricMapper:
         if (cfg.display_glb_edt or cfg.display_glb_ogm) and (
                 self.map_ct % cfg.vis_interval == 0):
             self._stream(out, origin_blk)
-        self._queue_capacity_guard(out["arch_dropped"])
+        self._queue_capacity_guard(
+            out["arch_dropped"],
+            out["relax_iters"] if cfg.merge_mode == "relax" else None)
         return result
 
     # -- device -> host copies ---------------------------------------------
@@ -272,7 +284,7 @@ class VolumetricMapper:
         p, self._cap_pending = self._cap_pending, None
         if p is None:
             return
-        (dropped,), ev = p
+        (dropped,), ev, relax_iters = p
         if ev is not None:
             ev.synchronize()
         dropped = int(dropped)
@@ -284,10 +296,18 @@ class VolumetricMapper:
                 f"dropped this frame ({dropped} total) — map data is being "
                 f"lost; increase cfg.max_blocks (currently "
                 f"{self.cfg.max_blocks})")
+        if relax_iters is not None and relax_iters >= self.cfg.relax_iters:
+            self._alert(
+                f"relaxation hit its sweep cap ({relax_iters} >= "
+                f"{self.cfg.relax_iters}): the wavefront fixed point may "
+                f"not have converged; raise cfg.max_relax_iters")
 
-    def _queue_capacity_guard(self, arch_dropped):
+    def _queue_capacity_guard(self, arch_dropped, relax_iters: int | None):
+        """relax_iters: the frame's sweep count on the relax engine, else
+        None (the sweep-cap check applies to the relax engine only)."""
         self.check_capacity()
-        self._cap_pending = self._to_host("capacity", (arch_dropped,))
+        self._cap_pending = (*self._to_host("capacity", (arch_dropped,)),
+                             relax_iters)
 
     def capacity_report(self) -> dict:
         """Current saturation counters (host view)."""
@@ -392,6 +412,34 @@ class VolumetricMapper:
         vmask[:n] = True if valid is None else np.asarray(valid, bool)[:n]
         return (torch.from_numpy(buf).to(self.device),
                 torch.from_numpy(vmask).to(self.device))
+
+    def process_scan2d(self, proj: geo.Projection, ranges, theta_min,
+                       theta_inc):
+        """2-D LiDAR frame: ranges [scan_num] (NaN where nothing was hit) of
+        beams at theta_min + i * theta_inc in the sensor's z = 0 plane (a
+        numpy array or a tensor)."""
+        t0 = time.perf_counter()
+        cfg, dev = self.cfg, self.device
+        proj = self._sensor_proj(proj)
+        origin = proj.trans.cpu().numpy().astype(np.float32)
+        pvt, origin_blk, off = self._frame_geometry(origin)
+        # the pose in float32, as the JAX package packs it into its frame
+        # upload (hokuyo_update rounds the angles to float32 too)
+        pose = geo.Projection(proj.rot.to(device=dev, dtype=torch.float32),
+                              torch.from_numpy(origin).to(dev))
+        param = ScanParam(theta_min=float(theta_min),
+                          theta_inc=float(theta_inc),
+                          ranges=torch.as_tensor(ranges,
+                                                 dtype=torch.float32).to(dev))
+        inst = hokuyo_update(
+            pose, param, pvt, local_size=cfg.local_size,
+            voxel_width=cfg.voxel_width, ogm_min_h=cfg.ogm_min_h,
+            ogm_max_h=cfg.ogm_max_h,
+            for_motion_planner=cfg.for_motion_planner,
+            robot_r2_grids=cfg.robot_r2_grids)
+        counts = torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+        return self._run(inst, counts, pvt, origin_blk, off,
+                         input_pointcloud=False, t_sensor0=t0)
 
     def process_pointcloud(self, proj: geo.Projection, points_sensor,
                            valid=None):

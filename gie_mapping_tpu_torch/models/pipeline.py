@@ -1,11 +1,13 @@
-"""The per-frame map update of the PyTorch port (canvas_edt merge).
+"""The per-frame map update of the PyTorch port.
 
 Counterpart of gie_mapping_tpu/models/pipeline.py: the host-gated canvas
-scroll (`scroll_step`, the scroll half of scroll_frame_step), block allocation,
-occupancy fusion, the change-gated exact canvas EDT (`_gated_canvas_merge`,
-with its slab menu, block P-test, phase-1 cache and zero-site constant
-fill), the ungated full EDT below `edt_gate_min_vox`, frontier marking and
-changed-block tracking.  Every output is bit-identical to the JAX package's.
+scroll (`scroll_step`, the scroll half of scroll_frame_step), block
+allocation, occupancy fusion, the change-gated exact canvas EDT
+(`_gated_canvas_merge`, with its slab menu, block P-test, phase-1 cache and
+zero-site constant fill), the ungated full EDT below `edt_gate_min_vox`, the relax engine
+(merge_mode="relax": window EDT, reconciliation, raise wave, fixed point;
+one host sync per four sweeps), frontier marking and changed-block
+tracking.  Every output is bit-identical to the JAX package's.
 
 Where the JAX package chooses a branch on the device (`lax.switch` over the
 EDT slab menu and over the phase-1 patch size), the port reads the choice
@@ -28,7 +30,8 @@ from ..map_state import COC_INVALID16, MapState, scroll_canvas
 from ..ops.edt_batch import batch_edt, batch_edt_slab
 from ..ops.fusion import _fence_mask, _lowpass
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
-from ..ops.wave import mark_frontiers
+from ..ops.wave import (invalidate_disappeared, mark_frontiers,
+                        reconcile_window, relax_fixed_point)
 from ..utils import constants as _c
 from ..utils import geometry as geo
 from ..utils.config import MapConfig
@@ -370,13 +373,14 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     window_mask[wb] = True
 
     gated = gate_enabled(cfg)
+    relax_iters = 0
     if gated:
         es = [0, 0, 0] if enter_shift is None else enter_shift
         (final_dist, final_coc, dist_win, coc_win, changed_blk_d, gate_level,
          slab_vox, dmax_new, p1c_new, sync_ms) = _gated_canvas_merge(
             state, canvas_type, new_type_win, old_type_win, off, window_mask,
             present, es, cfg)
-    else:
+    elif cfg.merge_mode == "canvas_edt":
         # one exact EDT over the whole canvas, then the same keep-old / take
         full = batch_edt(canvas_type, sum(cs))
         obs = canvas_type != VOX_UNKNOWN
@@ -384,6 +388,32 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
             cfg, state.dist_sq, state.coc, full, obs, _expand_blocks(present),
             window_mask)
         dist_win, coc_win = dist[wb], coc[wb]
+    else:
+        # the relax engine: the window's batch EDT reconciled with the
+        # stored canvas, the raise wave (fast_mode off), then the lower
+        # fixed point over the canvas
+        outside_observed = (canvas_type != VOX_UNKNOWN) & ~window_mask
+        batch = batch_edt(glb_type, cfg.max_width)
+        seed_dist, seed_coc = reconcile_window(
+            batch, state.dist_sq[wb], state.coc[wb], glb_type, off, local_size)
+        dist = state.dist_sq.clone()
+        dist[wb] = seed_dist
+        coc = state.coc.clone()
+        coc[wb] = seed_coc
+        raised = None
+        if not cfg.fast_mode:
+            dead_win = ((old_type_win == VOX_OCCUPIED)
+                        & (glb_type != VOX_OCCUPIED) & (glb_type != VOX_UNKNOWN))
+            dist, coc, raised = invalidate_disappeared(
+                dist, coc, outside_observed, state.coc, dead_win, off,
+                max_sweeps=cfg.relax_iters)
+        can_update = window_mask if cfg.fast_mode else (window_mask
+                                                        | outside_observed)
+        dist, coc, relax_iters = relax_fixed_point(
+            dist, coc, can_update, outside_observed, window_mask,
+            cutoff_sq=cfg.cutoff_grids_sq, max_iters=cfg.relax_iters)
+        # copies: the write-back below splices into dist and coc in place
+        dist_win, coc_win = dist[wb].clone(), coc[wb].clone()
 
     # ---- frontiers -----------------------------------------------------------
     glb_type_out, fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
@@ -393,6 +423,18 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     writeback = observed_win & pair_valid
     vt_win = torch.where(fnt & writeback, VOX_FNT, new_type_win).to(torch.int8)
     canvas_type[wb] = vt_win
+    if cfg.merge_mode == "relax":
+        # pair-invalid window voxels keep the OLD stored value, except where
+        # the raise wave reached them (the reference's wave mutates the
+        # stored map in place, so they stay raised)
+        old_dist_win, old_coc_win = state.dist_sq[wb], state.coc[wb]
+        if raised is not None:
+            rw = raised[wb]
+            old_dist_win = torch.where(rw, EMPTY_VALUE, old_dist_win)
+            old_coc_win = torch.where(rw[..., None], INV16, old_coc_win)
+        final_dist, final_coc = dist, coc
+        final_dist[wb] = torch.where(writeback, dist_win, old_dist_win)
+        final_coc[wb] = torch.where(writeback[..., None], coc_win, old_coc_win)
 
     edt = torch.where(
         observed_win,
@@ -435,7 +477,7 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         coc_win.to(torch.int32) + canvas_origin_vox, INV16)
     outputs = {
         "changed_blk": changed_blk,
-        "relax_iters": 0,
+        "relax_iters": relax_iters,
         "arch_dropped": state.arch_dropped,
         "fnt_count": fnt.sum(dtype=torch.int32),
         "gate_level": gate_level if gated else -1,

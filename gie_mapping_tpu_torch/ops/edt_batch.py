@@ -8,6 +8,9 @@ envelope, z-major lanes):
   phase 2 (along x)   ops/kernels/envelope.py::envelope_packed on [X, Z, Y]
   phase 3 (along z)   ops/kernels/envelope.py::envelope_mid    on [X, Z, Y]
 
+and, on a one-voxel-deep (Z == 1) grid, phase 1 then the generic
+ops/kernels/envelope.py::envelope along x on [X, 1, Y], with no phase 3.
+
 Outputs are bit-identical to the JAX package's batch_edt / batch_edt_slab:
   dist_sq int32 [..] squared distance (EMPTY_VALUE where no site reachable),
   coc int32 [.., 3] canvas coordinate of the closest site (INVALID_COC),
@@ -18,7 +21,8 @@ from __future__ import annotations
 import torch
 
 from ..utils.constants import EMPTY_VALUE, INVALID_COC
-from .kernels.envelope import env_idx_bits, envelope_mid, envelope_packed
+from .kernels.envelope import (env_idx_bits, envelope, envelope_mid,
+                               envelope_packed)
 from .kernels.phase1 import phase1_pack_bits, phase1_packed
 
 _BIG = 1 << 28  # "infinite" squared cost of a lane without a site
@@ -44,6 +48,19 @@ def _finish(dist_sq, coc_x, coc_y, coc_z, valid):
     return {"dist_sq": dist_sq, "coc": coc, "valid": valid}
 
 
+def _batch_edt_2d(p1_packed, yb, ib2):
+    """The Z == 1 grid: phase 2 along x through the generic envelope on the
+    [X, 1, Y] layout, no phase 3, coc_z = 0.  The JAX package runs phase 1
+    through XLA here; unpacking the packed word differs from it only in the
+    payload of site-free lanes, which the valid mask drops."""
+    g1sq = torch.where((p1_packed & 1) > 0, p1_packed >> (yb + 1), _BIG)
+    pay2 = p1_packed & ((1 << (yb + 1)) - 1)
+    pk2, pay2t = envelope(_zyx(g1sq), _zyx(pay2))                 # [X, 1, Y]
+    pk2, pay2s = _zyx(pk2), _zyx(pay2t)                          # [X, Y, 1]
+    return _finish(pk2 >> ib2, pk2 & ((1 << ib2) - 1), pay2s >> 1,
+                   torch.zeros_like(pk2), (pay2s & 1) > 0)
+
+
 def batch_edt(vox_type: torch.Tensor, max_width: int,
               p1_packed: torch.Tensor | None = None) -> dict:
     """EDT of an int8 [X, Y, Z] type canvas (OCCUPIED voxels are sites).
@@ -51,12 +68,12 @@ def batch_edt(vox_type: torch.Tensor, max_width: int,
     p1_packed: the packed phase-1 word of this canvas (phase1_packed), when
     the caller maintains it; phase 1 is then skipped."""
     X, Y, Z = vox_type.shape
-    if Z <= 1:
-        raise NotImplementedError("the 2-D (Z == 1) EDT path is not ported yet")
     yb = phase1_pack_bits(Y)
     if p1_packed is None:
         p1_packed = phase1_packed(vox_type, max_width)
     ib2 = env_idx_bits(X)
+    if Z == 1:
+        return _batch_edt_2d(p1_packed, yb, ib2)
     pk2, pay2t = envelope_packed(_zyx(p1_packed), yb)            # [X, Z, Y]
     d2m, pay3 = _phase3_inputs(pk2, pay2t, ib2)
     ib3 = env_idx_bits(Z)

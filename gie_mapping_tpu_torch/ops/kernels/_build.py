@@ -39,6 +39,7 @@ SIGNATURES = {
     "gie_phase1_packed": (_P, _P, _I, _I, _I, _I, _I, _P),
     "gie_envelope_packed": (_P, _P, _P, _I, _L, _I, _I, _P),
     "gie_envelope_mid": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
+    "gie_envelope": (_P, _P, _P, _P, _I, _L, _I, _P),
     "gie_carve": (_P, _P, _P, _P, _P) + (_I,) * 6 + (_F,) * 4 + (_I, _I)
                  + (_F,) * 6 + (_I, _I, _P),
     "gie_shift_canvas": (_P, _P, _P) + (_I,) * 9 + (_P,),

@@ -1,10 +1,11 @@
 """Exact lower envelope with winner payload (EDT phases 2 and 3): kernel
 wrappers + plain versions.
 
-Counterparts of gie_mapping_tpu/ops/pallas/envelope.py::envelope_packed_pallas
-and ::envelope_mid_pallas; the CUDA kernels are csrc/envelope.cu.  Both
-return the packed key `best << idx_bits | site` (ties to the smallest site,
-best capped at (1 << (31 - idx_bits)) - 1) and the winning site's payload.
+Counterparts of gie_mapping_tpu/ops/pallas/envelope.py::envelope_packed_pallas,
+::envelope_mid_pallas and ::envelope_pallas (with packed_out and one
+payload); the CUDA kernels are csrc/envelope.cu.  All three return the
+packed key `best << idx_bits | site` (ties to the smallest site, best capped
+at (1 << (31 - idx_bits)) - 1) and the winning site's payload.
 """
 from __future__ import annotations
 
@@ -53,6 +54,13 @@ def envelope_mid_plain(f: torch.Tensor, pay: torch.Tensor):
     """Plain version of envelope_mid."""
     B, N = f.shape[:2]
     key, p = _envelope_plain(f.reshape(B, N, -1), pay.reshape(B, N, -1))
+    return key.reshape(f.shape), p.reshape(f.shape)
+
+
+def envelope_plain(f: torch.Tensor, pay: torch.Tensor):
+    """Plain version of envelope."""
+    N = f.shape[0]
+    key, p = _envelope_plain(f.reshape(1, N, -1), pay.reshape(1, N, -1))
     return key.reshape(f.shape), p.reshape(f.shape)
 
 
@@ -112,5 +120,32 @@ def envelope_mid(f: torch.Tensor, pay: torch.Tensor):
     return key, pout
 
 
+def envelope(f: torch.Tensor, pay: torch.Tensor):
+    """Envelope over axis 0 of [N, ...] site costs `f` with per-site
+    payload `pay`.  Returns (key, payload) shaped like `f`.
+
+    Like envelope_pallas, it expects a sited lane's best cost below the
+    cap (batch_edt's costs never reach it); costs above the cap clamp.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    _check("envelope", f, pay)
+    if f.device.type == "cpu":
+        return envelope_plain(f, pay)
+    N = f.shape[0]
+    L = f.numel() // max(N, 1)
+    fs = f.contiguous()
+    ps = pay.contiguous()
+    key = torch.empty_like(fs)
+    pout = torch.empty_like(fs)
+    lib = _build.library()
+    rc = lib.gie_envelope(fs.data_ptr(), ps.data_ptr(), key.data_ptr(),
+                          pout.data_ptr(), N, L, env_idx_bits(N),
+                          _build.stream_of(fs))
+    envelope.launches += 1
+    _build.check("gie_envelope", rc)
+    return key, pout
+
+
 envelope_packed.launches = 0
 envelope_mid.launches = 0
+envelope.launches = 0

@@ -1,11 +1,12 @@
-"""Synthetic worlds, the point-cloud simulator and trajectories (numpy
-only).
+"""Synthetic worlds, the point-cloud and 2-D LiDAR simulators and
+trajectories (numpy only).
 
 BoxWorld and circular_trajectory are copies from
 gie_mapping_tpu/runtime/datasets.py (the machine that runs the port on a
 GPU has no JAX, and the JAX package's module imports its JAX geometry):
-worlds and clouds made from one seed are identical in both packages.  The
-simulators of the sensors the port does not have yet stay there.
+worlds, clouds and scans made from one seed are identical in both
+packages.  The simulators of the sensors the port does not have yet stay
+there.
 """
 from __future__ import annotations
 
@@ -108,6 +109,19 @@ class BoxWorld:
         hit = first_k < n_t
         return np.where(hit, ts[np.minimum(first_k, n_t - 1)],
                         np.nan).astype(np.float32)
+
+    def scan_2d(self, proj: geo.Projection, n_beams=360, theta_min=-np.pi,
+                theta_inc=None, max_range=30.0):
+        """Simulated planar LiDAR in the sensor frame (z=0 plane): (ranges
+        float32 [n_beams], NaN where nothing is hit; theta_min; theta_inc)."""
+        if theta_inc is None:
+            theta_inc = 2 * np.pi / n_beams
+        th = theta_min + np.arange(n_beams) * theta_inc
+        dirs_local = np.stack([np.cos(th), np.sin(th), np.zeros_like(th)], -1)
+        rot = np.asarray(proj.rot)
+        dirs_world = dirs_local @ rot.T
+        ranges = self.ray_march(np.asarray(proj.trans), dirs_world, max_range)
+        return ranges, theta_min, theta_inc
 
     def pointcloud(self, proj: geo.Projection, n_rays=4096, max_range=12.0, seed=0):
         """Simulated omnidirectional pointcloud: endpoints in SENSOR frame."""
@@ -215,3 +229,41 @@ def cow_lady_scroll():
     return overrides, world, scroll_trajectory(
         start=(-2.5, 0.0, 1.2), n_yaw=3, step_x=0.5, n_out=10, dz=1.0,
         n_back=10, teleport_x=25.0, n_after=0)
+
+
+# A Hokuyo UTM-30LX, from its data sheet: 1,081 beams over 270 degrees
+# (0.25 degrees apart), 30 m range
+HOKUYO_BEAMS = 1081
+HOKUYO_THETA_MIN = -3 * np.pi / 4
+HOKUYO_THETA_INC = np.pi / 720
+HOKUYO_RANGE = 30.0
+
+
+def scan2d_world():
+    """The 2-D LiDAR paths' world: the cow-lady scroll path's 20 m corridor
+    (24 pillars, some below the 1 m scan plane)."""
+    return BoxWorld.corridor(seed=11, n_pillars=24, extent=10.0, height=2.5)
+
+
+def hokuyo_scan(world, pose):
+    """(ranges, theta_min, theta_inc) of the Hokuyo geometry at a
+    (position, quaternion) pose."""
+    return world.scan_2d(geo.Projection.from_pose(*pose), n_beams=HOKUYO_BEAMS,
+                         theta_min=HOKUYO_THETA_MIN,
+                         theta_inc=HOKUYO_THETA_INC, max_range=HOKUYO_RANGE)
+
+
+def scan2d_path():
+    """16 poses of the scan2D preset's path, with the sensor 1 m up: 5
+    headings a quarter turn apart at (-3, 1), then 11 steps of +0.6 m in x
+    along a lane free of pillars (the 100 x 100 x 30 window scrolls its
+    128 x 128 x 56 canvas every second step or so)."""
+    return yaw_then_translate(n_yaw=5, n_move=11, start=(-3.0, 1.0, 1.0),
+                              yaw_step=np.pi / 2, step_x=0.6)
+
+
+def scan2d_flat_path():
+    """10 poses of the true 2-D map's path, on the same lane: 3 headings
+    half a turn apart, then 7 steps of +0.6 m in x."""
+    return yaw_then_translate(n_yaw=3, n_move=7, start=(-3.0, 1.0, 1.0),
+                              yaw_step=np.pi, step_x=0.6)

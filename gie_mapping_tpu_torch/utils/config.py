@@ -37,13 +37,13 @@ MAX_HALO_GRIDS = 96
 # that validation matches without importing JAX.  The port runs "fusepay".
 _ENV_VARIANTS = ("base", "mono", "fusepay", "mono+fusepay", "cf", "cf_base")
 
-# The one value of each engine-path field that the port runs so far.
+# The value (or values) of each engine-path field that the port runs so far.
 PORTED_VALUES = {
     "edt_env_variant": "fusepay",
     "edt_phase1": "pallas",
     "edt_mid": True,
     "edt_gate_pmode": "block",
-    "merge_mode": "canvas_edt",
+    "merge_mode": ("canvas_edt", "relax"),
     "raycast_mode": "projective",
     "profile_loc_rms": False,
     "profile_glb_rms": False,
@@ -53,11 +53,9 @@ PORTED_VALUES = {
 def unported_options(cfg) -> list:
     """`field=value` strings for every setting of `cfg` the port cannot run
     yet (empty when the whole config is on the ported path)."""
-    bad = [f"{k}={getattr(cfg, k)!r}" for k, v in PORTED_VALUES.items()
-           if getattr(cfg, k) != v]
-    if cfg.is_2d:
-        bad.append(f"local_size={cfg.local_size} (2-D canvas)")
-    return bad
+    ok = lambda v, want: v in want if isinstance(want, tuple) else v == want
+    return [f"{k}={getattr(cfg, k)!r}" for k, v in PORTED_VALUES.items()
+            if not ok(getattr(cfg, k), v)]
 
 
 class CutoffNarrowedWarning(UserWarning):

@@ -54,6 +54,22 @@ class Projection:
         zz = fma_f32(z, r[2, 2], fma_f32(y, r[2, 1], x * r[2, 0]))
         return torch.cat([xy, zz], dim=1) + self.trans.to(pts.device)
 
+    def to_local(self, rel: torch.Tensor) -> torch.Tensor:
+        """Sensor-frame coordinates of world offsets rel = p - trans
+        ([..., 3], rounded by the caller): rel @ rot, rounded as XLA's CPU
+        dot rounds it inside a jitted program.  Over the rows in whole
+        groups of eight, output x and y are ((a0 r0 + a1 r1) + a2 r2) and
+        output z is fma(a2, r2, fma(a1, r1, a0 r0)); the last (rows mod 8)
+        rows take the fused form in every column."""
+        r = self.rot.to(rel.device)
+        a = rel.reshape(-1, 3)
+        x, y, z = a[:, 0:1], a[:, 1:2], a[:, 2:3]
+        out = fma_f32(z, r[2], fma_f32(y, r[1], x * r[0]))
+        n_full = a.shape[0] // 8 * 8
+        out[:n_full, :2] = ((x * r[0, :2] + y * r[1, :2])
+                            + z * r[2, :2])[:n_full]
+        return out.reshape(rel.shape)
+
     def to(self, device) -> "Projection":
         return Projection(self.rot.to(device), self.trans.to(device))
 

@@ -1,8 +1,9 @@
-"""Write the JAX package's results on the cow-lady paths that chip_smoke.py
-drives through the PyTorch port on a GPU (the machine with the GPU has no
-JAX, so these files are the port's only link to the reference there):
+"""Write the JAX package's results on the paths that chip_smoke.py drives
+through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
+these files are the port's only link to the reference there):
 
-    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py [--only slice|scroll]
+    JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
+        [--only slice|scroll|scan2d|flat]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -24,6 +25,19 @@ the digest of the host mirror after flush_stream (sorted keys, every
 field).  It asserts: at least 6 scrolls, one with both exits and archive
 re-entries, one in z, one teleport of at least the canvas, no archive drop,
 both gate branches, and a nonzero streaming leftover.
+
+tests/fixtures/torch_port_scan2d_ref.npz and torch_port_scan2d_flat_ref.npz,
+the two 2-D LiDAR paths (datasets.scan2d_world, the Hokuyo geometry of
+datasets.hokuyo_scan, the sensor 1 m up): `scan2d`, the scan2D preset at
+its own defaults over datasets.scan2d_path (16 poses), and `flat`, the
+preset with a one-voxel-deep window on the relax engine over
+datasets.scan2d_flat_path (10 poses), in about a minute each.  Per frame
+they hold the canvas origin, whether the canvas scrolled, the gate level,
+relax_iters, the voxel type counts, the sum of valid dist_sq and the sha256
+of the window outputs; then the final state sha256.  The script asserts:
+for scan2d at least 3 scrolls and gate levels that include a slab level and
+the full level; for flat relax_iters > 0 on every frame and a scroll; for
+both, occupied voxels on every frame after the first and no archive drop.
 """
 from __future__ import annotations
 
@@ -38,6 +52,11 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 OUT = os.path.join(HERE, "torch_port_cow_ref.npz")
 OUT_SCROLL = os.path.join(HERE, "torch_port_cow_scroll_ref.npz")
+OUT_SCAN2D = os.path.join(HERE, "torch_port_scan2d_ref.npz")
+OUT_FLAT = os.path.join(HERE, "torch_port_scan2d_flat_ref.npz")
+# the true 2-D map: the scan2D preset with a one-voxel-deep window on the
+# relax engine
+FLAT = dict(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
 
 
 def _state(mapper):
@@ -135,21 +154,88 @@ def run(path, overrides, world, poses, scroll):
     print("written:", path, os.path.getsize(path), "bytes")
 
 
+def run_scan(path, overrides, poses, flat):
+    """The JAX mapper's process_scan2d over `poses` (scan2D preset with
+    `overrides`); writes `path`."""
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.models.pipeline import _slab_menu
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils.config import scan2d_config
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+    from gie_mapping_tpu_torch.runtime.datasets import (hokuyo_scan,
+                                                        scan2d_world)
+
+    cfg = scan2d_config(**overrides)
+    world = scan2d_world()
+    mapper = VolumetricMapper(cfg)
+    mapper.warmup(robot_pos=poses[0][0])
+    keys = ["origin", "scrolled", "gate_level", "relax_iters", "type_counts",
+            "dist_sum", "out_sha"]
+    rec = {k: [] for k in keys}
+    for i, pose in enumerate(poses):
+        t0 = time.time()
+        before = None if mapper._origin is None else mapper._origin.copy()
+        ranges, tmin, tinc = hokuyo_scan(world, pose)
+        out = mapper.process_scan2d(geo.Projection.from_pose(*pose), ranges,
+                                    tmin, tinc).fetch()
+        d = np.asarray(out.dist_sq)
+        rec["origin"].append(np.asarray(mapper._origin, np.int32))
+        rec["scrolled"].append(before is None
+                               or not np.array_equal(before, mapper._origin))
+        rec["gate_level"].append(int(out.gate_level))
+        rec["relax_iters"].append(int(out.relax_iters))
+        rec["type_counts"].append(np.bincount(
+            np.asarray(out.glb_type, np.int64).ravel(), minlength=4)[:4])
+        rec["dist_sum"].append(int(d[d != 999_999].astype(np.int64).sum()))
+        rec["out_sha"].append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        print(f"frame {i}: origin {rec['origin'][-1].tolist()} scrolled "
+              f"{rec['scrolled'][-1]} gate {out.gate_level} relax_iters "
+              f"{out.relax_iters} types {rec['type_counts'][-1].tolist()} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    mapper.check_capacity()
+    types = np.stack(rec["type_counts"]).astype(np.int64)
+    scrolled = np.asarray(rec["scrolled"], bool)
+    levels = np.asarray(rec["gate_level"])
+    iters = np.asarray(rec["relax_iters"])
+    assert (types[1:, 2] > 0).all(), types
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    if flat:
+        assert cfg.is_2d and (iters > 0).all(), iters
+        assert scrolled[1:].sum() >= 1, scrolled
+    else:
+        n_menu = len(_slab_menu(cfg.canvas_size))
+        assert scrolled[1:].sum() >= 3, scrolled
+        assert (levels < n_menu).any() and (levels == n_menu).any(), levels
+    np.savez_compressed(
+        path, origin=np.stack(rec["origin"]), scrolled=scrolled,
+        gate_level=levels, relax_iters=iters, type_counts=types,
+        dist_sum=np.asarray(rec["dist_sum"], np.int64),
+        out_sha=np.asarray(rec["out_sha"]),
+        state_sha=np.asarray(state_digest(_state(mapper))))
+    print("written:", path, os.path.getsize(path), "bytes")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("slice", "scroll"))
+    ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
     from gie_mapping_tpu_torch.runtime.datasets import (cow_lady_scroll,
-                                                        cow_lady_slice)
+                                                        cow_lady_slice,
+                                                        scan2d_flat_path,
+                                                        scan2d_path)
 
     if args.only in (None, "slice"):
         run(OUT, *cow_lady_slice(), scroll=False)
     if args.only in (None, "scroll"):
         run(OUT_SCROLL, *cow_lady_scroll(), scroll=True)
+    if args.only in (None, "scan2d"):
+        run_scan(OUT_SCAN2D, {}, scan2d_path(), flat=False)
+    if args.only in (None, "flat"):
+        run_scan(OUT_FLAT, FLAT, scan2d_flat_path(), flat=True)
 
 
 if __name__ == "__main__":

@@ -57,10 +57,10 @@ def test_validation_matches():
 
 
 @pytest.mark.parametrize("override", [
-    dict(merge_mode="relax"), dict(raycast_mode="dda"), dict(edt_mid=False),
+    dict(edt_env_variant="mono"), dict(raycast_mode="dda"), dict(edt_mid=False),
     dict(edt_phase1="xla"), dict(edt_env_variant="base"),
     dict(edt_gate_pmode="voxel"), dict(profile_glb_rms=True),
-    dict(local_size_m=(10.0, 10.0, 0.1)),
+    dict(profile_loc_rms=True),
 ])
 def test_unported_options_are_refused(override):
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
@@ -78,9 +78,38 @@ def test_cow_lady_defaults_construct():
     ported path."""
     from gie_mapping_tpu_torch import create_mapper
 
-    m = create_mapper("cow_lady")
+    m = create_mapper("cow_lady", device="cpu")
     assert m.cfg.display_glb_edt and m.cfg.display_glb_ogm
     assert not tcfg.unported_options(m.cfg)
+
+
+def test_scan2d_defaults_construct():
+    """The scan2D preset at its own defaults (the canvas engine, fast_mode
+    and for_motion_planner on), and its true 2-D map on the relax engine,
+    are on the ported path."""
+    from gie_mapping_tpu_torch import create_mapper
+
+    m = create_mapper("scan2D", device="cpu")
+    assert m.cfg == tcfg.scan2d_config()
+    assert m.cfg.fast_mode and m.cfg.for_motion_planner
+    assert m.device.type == "cpu" and m.state.vox_type.device.type == "cpu"
+    flat = tcfg.scan2d_config(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
+    assert flat.is_2d and not tcfg.unported_options(flat)
+
+
+def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
+    """Without device=..., the mapper runs on the card; with no card it
+    raises instead of carrying on on the CPU."""
+    import torch
+
+    from gie_mapping_tpu_torch import create_mapper
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        create_mapper("scan2D")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VolumetricMapper(tcfg.cow_lady_config(), device="cuda")
 
 
 def test_port_never_imports_jax():

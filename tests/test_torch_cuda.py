@@ -57,6 +57,52 @@ def test_envelope_kernels_match_plain(dev):
         assert torch.equal(a, b)
 
 
+@pytest.mark.parametrize("N,L", [(1, 45), (2, 45), (100, 100), (152, 333),
+                                 (56, 128 * 128)])
+def test_generic_envelope_kernel_matches_plain(dev, N, L):
+    g = torch.Generator().manual_seed(N)
+    cap = (1 << (31 - ke.env_idx_bits(N))) - 1
+    f = torch.randint(0, 300, (N, L), generator=g, dtype=torch.int32)
+    f[torch.rand(N, L, generator=g) < 0.4] = 1 << 28
+    f[torch.rand(N, L, generator=g) < 0.1] = cap
+    f[:, ::9] = 1 << 28
+    pay = torch.randint(0, 1 << 30, f.shape, generator=g, dtype=torch.int32)
+    f, pay = f.to(dev), pay.to(dev)
+    for a, b in zip(ke.envelope(f, pay), ke.envelope_plain(f, pay)):
+        assert torch.equal(a, b)
+
+
+def test_batch_edt_2d_on_gpu_matches_cpu(dev):
+    t = _types((100, 100, 1), 0.01, 7)
+    ref = eb.batch_edt(t, 201)
+    got = eb.batch_edt(t.to(dev), 201)
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k])
+
+
+@pytest.mark.parametrize("local", [(100, 100, 30), (100, 100, 1)])
+def test_hokuyo_on_gpu_matches_cpu(dev, local):
+    """The 2-D LiDAR model's float path (atan2f, fused multiply-adds,
+    correctly rounded roots, IEEE divides) rounds the same on the card."""
+    from gie_mapping_tpu_torch.ops import scan_sensors as ss
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    world = ds.scan2d_world()
+    for pose in ds.scan2d_path()[::3]:
+        r, tmin, tinc = ds.hokuyo_scan(world, pose)
+        pvt = geo.calculate_pivot(pose[0], 0.1, local)
+        kw = dict(local_size=local, voxel_width=0.1, ogm_min_h=-10.0,
+                  ogm_max_h=10.0, for_motion_planner=True, robot_r2_grids=4)
+        proj = geo.Projection.from_pose(*pose)
+        want = ss.hokuyo_update(proj, ss.ScanParam(tmin, tinc, torch.from_numpy(r)),
+                                pvt, **kw)
+        got = ss.hokuyo_update(proj, ss.ScanParam(tmin, tinc,
+                                                  torch.from_numpy(r).to(dev)),
+                               pvt, **kw)
+        assert torch.equal(got.cpu(), want)
+
+
 def test_batch_edt_on_gpu_matches_cpu(dev):
     t = _types((32, 40, 16), 0.01, 4)
     ref = eb.batch_edt(t, 88)

@@ -361,7 +361,7 @@ def _assert_mirrors(jmir, tmir):
 
 def test_mapper_streaming_scroll_bitwise():
     jm = JaxMapper(jcfg.cow_lady_config(**STREAM))
-    tm = TorchMapper(tcfg.cow_lady_config(**STREAM))
+    tm = TorchMapper(tcfg.cow_lady_config(**STREAM), device="cpu")
     shifts, leftovers, levels = [], [], []
     for i, pose in enumerate(POSES):
         before = tm._origin
@@ -399,7 +399,7 @@ def test_mapper_streaming_scroll_bitwise():
 def test_mapper_archive_overflow_warns_on_the_same_frame():
     kw = dict(STREAM, max_blocks=24)
     jm = JaxMapper(jcfg.cow_lady_config(**kw))
-    tm = TorchMapper(tcfg.cow_lady_config(**kw))
+    tm = TorchMapper(tcfg.cow_lady_config(**kw), device="cpu")
     # a teleport on frame 1 archives every present block; frame 2 reports
     p0 = POSES[0]
     poses = [p0, (p0[0] + np.float32([12.0, 0, 0]), p0[1]),

@@ -61,7 +61,7 @@ def _assert_same(jm, tm, jo, to, frame):
 
 def test_slice_bitwise_every_frame():
     jm = JaxMapper(jcfg.cow_lady_config(**SMALL))
-    tm = TorchMapper(tcfg.cow_lady_config(**SMALL))
+    tm = TorchMapper(tcfg.cow_lady_config(**SMALL), device="cpu")
     poses = yaw_then_translate(n_yaw=5, n_move=3)
     jm.warmup(robot_pos=poses[0][0])
     tm.warmup(robot_pos=poses[0][0])
@@ -80,7 +80,7 @@ def test_zero_site_frames_then_sites():
     """Frames whose map holds no site take the constant-fill branch; the
     first frame with sites after them takes the full branch."""
     jm = JaxMapper(jcfg.cow_lady_config(**SMALL))
-    tm = TorchMapper(tcfg.cow_lady_config(**SMALL))
+    tm = TorchMapper(tcfg.cow_lady_config(**SMALL), device="cpu")
     poses = yaw_then_translate(n_yaw=3, n_move=0)
     rng = np.random.default_rng(8)
     far = rng.normal(size=(4096, 3)).astype(np.float32)
@@ -107,7 +107,7 @@ def test_slice_from_carried_jax_state():
         jp = jgeo.Projection.from_pose(*pose)
         jm.process_pointcloud(jp, WORLD.pointcloud(jp, n_rays=4096,
                                                    max_range=8.0, seed=i))
-    tm = TorchMapper(tcfg.cow_lady_config(**SMALL))
+    tm = TorchMapper(tcfg.cow_lady_config(**SMALL), device="cpu")
     tm.state = state_from_numpy(_jax_state(jm))
     np.testing.assert_array_equal(state_to_numpy(tm.state)["a_packed"],
                                   _jax_state(jm)["a_packed"])
@@ -131,7 +131,7 @@ def test_golden_pointcloud():
                                display_glb_edt=False, display_glb_ogm=False)
     world = BoxWorld.corridor(seed=17, n_pillars=4, extent=3.5)
     ref = np.load(GOLDEN_PC)
-    tm = TorchMapper(cfg)
+    tm = TorchMapper(cfg, device="cpu")
     origins = []
     for i, proj in enumerate(circular_trajectory(4, radius=1.0, height=0.8)):
         pts = world.pointcloud(proj, n_rays=4096, max_range=4.0, seed=i)
