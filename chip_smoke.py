@@ -9,15 +9,24 @@ Phases, one JSON line each; any failure exits non-zero:
   2. build    - compiles the CUDA kernels (csrc/) with nvcc.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the paths' shapes and at random ones (ties, empty lanes):
-                phase 1 and the three envelopes bitwise (the generic one at
-                N in {1, 2, 100, 128, 152}, odd lane counts, cap-valued
-                sites); batch_edt / batch_edt_slab bitwise against the plain
-                chain; the carve within 0.01 % of window voxels; the canvas
-                shift and the four block/archive row copies bitwise (every z
-                arm, shifts past the canvas, sentinel cocs, all-invalid and
-                repeated ids).  Times each kernel, its plain version and,
-                where one PyTorch call computes the same function, that
-                call; computes each kernel's bound (see `result`).
+                phase 1 and the three envelopes bitwise on every lane (the
+                O(N) phase-2 kernel also on the edge cases of
+                tests/test_torch_envelope_cases.py: N from 1 to 257,
+                costs just below the cap, lane counts that are not
+                multiples of 32; the generic one at N in {1, 2, 100, 128,
+                152}, cap-valued sites); batch_edt / batch_edt_slab bitwise
+                against the plain chain; the carve within 0.01 % of window
+                voxels; the canvas shift and the four block/archive row
+                copies bitwise (every z arm, shifts past the canvas,
+                sentinel cocs, all-invalid and repeated ids; archive
+                gathers of 1, 320 and 3610 rows).  Times
+                each kernel (`timing`: ms over back-to-back calls,
+                device_ms on the profiler's device clock, host_us per
+                call), its plain version and, where one PyTorch call
+                computes the same function, that call; computes each
+                kernel's bound (see `result`).  envelope_packed against its
+                old body at three shapes, gather_archive_rows against
+                index_select at four row counts, warm and cold L2.
   4. slice    - the cow-lady point-cloud frame through
                 VolumetricMapper.process_pointcloud at full size (152x152x80
                 canvas, 131072 points per frame, 12 frames, streaming off);
@@ -49,12 +58,13 @@ Phases, one JSON line each; any failure exits non-zero:
   8. profile  - only with --profile: torch.profiler over a second run of
                 each path.
 Then one line with every kernel's launches (summed over the four paths,
-each counted from 0 just before it), error, times and bound, the card's
-nvidia-smi line, and last `{"ok": true, "device": {...}}`.
+each counted from 0 just before it), error, times, bound and share, the
+card's nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import json
 import os
 import subprocess
@@ -90,13 +100,56 @@ P1_OPS_PER_VOXEL = 12
 CARVE_OPS_PER_VOXEL = 150
 
 
-def result(max_abs_err, ms, plain_ms, *, bytes_, ops, library_ms=None):
-    """One kernel's entry of the summary line, with its bound."""
+def result(max_abs_err, t, plain_ms, *, bytes_, ops, library=None):
+    """One kernel's entry of the summary line: its timing `t` (see
+    `timing`), its bound, and the timing of one PyTorch call that computes
+    the same function, where there is one.  Device times and share =
+    bound / device_ms are filled in by `settle` after CLOCK has run."""
     t_bytes, t_ops = bytes_ / HBM_BYTES_PER_MS, ops / OPS_PER_MS
-    return dict(max_abs_err=max_abs_err, ms=ms, plain_ms=plain_ms,
-                bound_ms=max(t_bytes, t_ops),
+    lib = library or {}
+    return dict(max_abs_err=max_abs_err, ms=t["ms"], device_ms=t["device_ms"],
+                host_us=t["host_us"], plain_ms=plain_ms, bound_ms=max(t_bytes, t_ops),
                 bound_by="bytes" if t_bytes >= t_ops else "operations",
-                library_ms=library_ms)
+                share=None, library_ms=lib.get("ms"),
+                library_device_ms=lib.get("device_ms"),
+                library_host_us=lib.get("host_us"))
+
+
+class Job(tuple):
+    """Indices of CLOCK's jobs: a device time that stands for their mean."""
+
+
+class DeviceClock:
+    """Timing jobs (fn, kernel, between) collected over the kernels phase
+    and measured together by `device_times` in ONE profiler session: in a
+    process that opens many sessions, later ones stop getting device
+    records."""
+
+    def __init__(self):
+        self.jobs, self.times = [], None
+
+    def add(self, fn, kernel=None, between=None) -> Job:
+        self.jobs.append((fn, kernel, between))
+        return Job((len(self.jobs) - 1,))
+
+    def run(self, reps=20):
+        self.times = device_times(self.jobs, reps)
+        self.jobs = []
+
+    def ms(self, v):
+        """The device time a Job stands for (other values unchanged)."""
+        return sum(self.times[i] for i in v) / len(v) if isinstance(v, Job) else v
+
+
+CLOCK = DeviceClock()
+
+
+def settle(entry):
+    """Fill in an entry's device times from CLOCK, and its share."""
+    for k in ("device_ms", "library_device_ms"):
+        entry[k] = CLOCK.ms(entry[k])
+    entry["share"] = entry["bound_ms"] / entry["device_ms"]
+    return entry
 
 
 def emit(obj):
@@ -115,7 +168,8 @@ def require(cond, phase, msg):
 
 
 def cuda_ms(fn, reps, warm=2):
-    """Mean device time of fn() over `reps` back-to-back calls (CUDA events)."""
+    """Mean time of fn() over `reps` back-to-back calls (CUDA events): the
+    slower of the device's time and the host's issue rate."""
     import torch
 
     for _ in range(warm):
@@ -129,6 +183,91 @@ def cuda_ms(fn, reps, warm=2):
     e.record()
     torch.cuda.synchronize()
     return s.elapsed_time(e) / reps
+
+
+def device_times(jobs, reps=20):
+    """Mean device duration per call (ms) of each job's fn.  A job is
+    (fn, kernel, between): `kernel` (a name) counts that kernel alone;
+    otherwise every kernel fn() launches counts but those of `between()`,
+    which runs before each call (an L2 flush).
+
+    The clock is the device's own: torch.profiler's (CUPTI) kernel records
+    of one session over all the jobs, a marker kernel before each job's
+    `reps` calls and after the last, the records cut at the markers; per
+    kernel its total duration over its count (a record may be dropped),
+    times its launches per call.  A session whose markers do not all
+    arrive is run again; after three such sessions the phase fails."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def session(calls):
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            calls()
+            torch.cuda.synchronize()
+        return sorted(((e.time_range.start, e.name, e.time_range.elapsed_us())
+                       for e in prof.events() if e.device_type == DeviceType.CUDA),
+                      key=lambda r: r[0])
+
+    mark = lambda: torch.cuda._sleep(1000)
+
+    def run_all():
+        for fn, _, between in jobs:
+            mark()
+            for _ in range(reps):
+                if between is not None:
+                    between()
+                fn()
+        mark()
+
+    run_all()  # warm-up
+    names = {}  # the kernel names of the marker and of each `between`
+    for _ in range(3):
+        for key, f in [("mark", mark)] + [(id(b), b) for _, _, b in jobs if b]:
+            names[key] = names.get(key) or {n for _, n, _ in session(f)}
+        recs = session(run_all)
+        cuts = [i for i, (_, n, _) in enumerate(recs) if n in names["mark"]]
+        if len(cuts) == len(jobs) + 1:
+            break
+    require(len(cuts) == len(jobs) + 1, "kernels",
+            f"three profiler sessions lost marker records ({len(cuts)} of "
+            f"{len(jobs) + 1} arrived): no device clock")
+    out = []
+    for j, (fn, kernel, between) in enumerate(jobs):
+        per = {}
+        for _, n, us in recs[cuts[j] + 1:cuts[j + 1]]:
+            if (kernel in n) if kernel is not None else \
+                    n not in names.get(id(between), ()):
+                c, t = per.get(n, (0, 0.0))
+                per[n] = (c + 1, t + us)
+        require(per and all(c >= reps // 2 for c, _ in per.values()), "kernels",
+                f"the profiler saw {per} for {reps} calls of {kernel or 'a call'}")
+        out.append(sum(t / c * max(1, round(c / reps)) for c, t in per.values()) / 1e3)
+    return out
+
+
+def host_us(fn, calls=200):
+    """Host time per call of fn() in microseconds: time.perf_counter over
+    `calls` back-to-back calls, the device synchronised once after them."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    t = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return t / calls * 1e6
+
+
+def timing(fn, kernel=None, reps=50):
+    """ms (CUDA events over back-to-back calls), device_ms (a CLOCK job)
+    and host_us of fn(); `kernel` names the device kernel it launches
+    (None: all)."""
+    return dict(ms=cuda_ms(fn, reps), device_ms=CLOCK.add(fn, kernel),
+                host_us=host_us(fn))
 
 
 def nvidia_smi_line() -> str:
@@ -228,7 +367,7 @@ def phase_kernels(dev, results):
     require(p1_bad == 0, ph, f"phase1 differs from its plain version in {p1_bad} voxels")
     t_canvas = canvases[0]
     results["phase1"] = result(
-        0, cuda_ms(lambda: kp.phase1_packed(t_canvas, mw), 50),
+        0, timing(lambda: kp.phase1_packed(t_canvas, mw), "phase1_packed_kernel"),
         cuda_ms(lambda: kp.phase1_packed_plain(t_canvas, mw), 10),
         bytes_=5 * t_canvas.numel(), ops=P1_OPS_PER_VOXEL * t_canvas.numel())
 
@@ -240,12 +379,12 @@ def phase_kernels(dev, results):
         w = kp.phase1_packed_plain(t, sum(t.shape)).permute(0, 2, 1).contiguous()
         cases.append((w, kp.phase1_pack_bits(t.shape[1])))
     cases.append((tie_packed(50, 300, 6, dev), 6))
-    for w, ybw in cases:
+    cases += [(torch.from_numpy(w).to(dev), ybw) for w, ybw in envelope_cases()]
+    for w, ybw in cases:  # every lane, site-free ones included
         kk, kpay = ke.envelope_packed(w, ybw)
         pk, ppay = ke.envelope_packed_plain(w, ybw)
-        sited = ((w & 1) > 0).any(0, keepdim=True).expand_as(w)
-        env_bad["packed"] += int(((kk != pk) | (kpay != ppay))[sited].sum())
-        err["packed"] = max(err["packed"], int((kk - pk).abs()[sited].max()))
+        env_bad["packed"] += int(((kk != pk) | (kpay != ppay)).sum())
+        err["packed"] = max(err["packed"], int((kk.long() - pk).abs().max()))
     # phase-3 inputs as the chain builds them, plus random / tie cases
     mids = []
     for t in canvases[:3]:
@@ -268,16 +407,14 @@ def phase_kernels(dev, results):
         err["mid"] = max(err["mid"], int((kk - pk).abs()[sited].max()))
     torch.cuda.synchronize()
     require(env_bad["packed"] == 0 and env_bad["mid"] == 0, ph,
-            f"envelopes differ from their plain versions on sited lanes: {env_bad}")
+            f"envelopes differ from their plain versions: {env_bad}")
     w0 = cases[0][0]
     d0, p0 = mids[0]
-    n2, n3 = w0.numel(), d0.numel()
-    results["envelope_packed"] = result(
-        err["packed"], cuda_ms(lambda: ke.envelope_packed(w0, yb), 20),
-        cuda_ms(lambda: ke.envelope_packed_plain(w0, yb), 3, warm=1),
-        bytes_=12 * n2, ops=ENV_OPS_PER_SITE * n2)
+    n3 = d0.numel()
+    results["envelope_packed"], env_report = envelope_packed_study(
+        w0, yb, err["packed"], random_canvas((128, 128, 56), 0.02, 4, dev))
     results["envelope_mid"] = result(
-        err["mid"], cuda_ms(lambda: ke.envelope_mid(d0, p0), 20),
+        err["mid"], timing(lambda: ke.envelope_mid(d0, p0), "envelope_kernel", 20),
         cuda_ms(lambda: ke.envelope_mid_plain(d0, p0), 3, warm=1),
         bytes_=16 * n3, ops=ENV_OPS_PER_SITE * n3)
     env5_bad = envelope_generic(dev, results)
@@ -341,17 +478,87 @@ def phase_kernels(dev, results):
             f"carve differs in {carve_bad} of {n_vox} voxels")
     depth, cnt, ep, pvt, origin, kw = carve_args
     results["carve"] = result(
-        carve_err, cuda_ms(lambda: kc.carve(depth, cnt, ep, pvt, origin, **kw), 50),
+        carve_err, timing(lambda: kc.carve(depth, cnt, ep, pvt, origin, **kw),
+                          "carve_kernel"),
         cuda_ms(lambda: kc.carve_plain(depth, cnt, ep, pvt, origin, **kw), 5),
         bytes_=8 * depth.numel() + 9 * ep.numel(),
         ops=CARVE_OPS_PER_VOXEL * ep.numel())
-    scroll_bad = scroll_kernels(dev, results)
+    scroll_bad, gather_report = scroll_kernels(dev, results)
+    CLOCK.run()
+    for entry in results.values():
+        settle(entry)
+    env_report()
+    gather_report()
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
           "envelope_generic_bad": env5_bad,
           "edt_bad": edt_bad, "scroll_kernels_bad": scroll_bad,
           "ms": {k: round(v["ms"], 4) for k, v in results.items()},
+          "device_ms": {k: round(v["device_ms"], 5) for k, v in results.items()},
+          "host_us": {k: round(v["host_us"], 2) for k, v in results.items()},
           "plain_ms": {k: round(v["plain_ms"], 4) for k, v in results.items()}})
     return carve_bad
+
+
+def envelope_cases():
+    """[(words int32 numpy [N, ...], yb)] of the O(N) envelope's edge cases
+    (ties, site-free and single-site lanes, N at the idx_bits boundaries,
+    costs just below the cap, falling costs): the cases on which the CPU
+    tests hold the kernel's numpy model (tests/test_torch_envelope_cases.py,
+    numpy only)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_envelope_cases as cases
+
+    return [cases.case(n) for n in cases.CASES]
+
+
+def envelope_packed_study(w_slice, yb, err, scan_canvas):
+    """Phase 2 at the main paths' three shapes: the slice's full
+    [152, 80 * 152], the gate's slab after frame 0 [152, 80 * 96] and
+    scan2d's [128, 56 * 128].  At each, the O(N) kernel against the old
+    body (the brute-force generic kernel on the same unpacked input), both
+    bitwise against each other, device times in turns: new, old, old, new.
+    Returns the summary entry (at the slice's shape) and a function that
+    prints the comparison once CLOCK has run."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+
+    X, Z, Y = 152, 80, 152
+    s3 = scan_canvas.shape
+    shapes = {
+        "152x12160": (w_slice, yb),
+        "152x7680": (w_slice.reshape(X, Z, Y)[:, :, 28:124].contiguous(), yb),
+        "128x7168": (kp.phase1_packed_plain(scan_canvas, sum(s3))
+                     .permute(0, 2, 1).contiguous(), kp.phase1_pack_bits(s3[1])),
+    }
+    jobs, bad = [], 0
+    for w, ybw in shapes.values():
+        N = w.shape[0]
+        cap = (1 << (31 - ke.env_idx_bits(N))) - 1
+        f = torch.where((w & 1) > 0, w >> (ybw + 1), cap).reshape(N, -1)
+        pay = (w & ((1 << (ybw + 1)) - 1)).reshape(N, -1)
+        new = lambda w=w, ybw=ybw: ke.envelope_packed(w, ybw)
+        old = lambda f=f, pay=pay: ke.envelope(f, pay)
+        bad += sum(int((a.reshape(N, -1) != b).sum()) for a, b in zip(new(), old()))
+        jobs.append([CLOCK.add(new, "envelope_packed_fh_kernel"),
+                     CLOCK.add(old, "envelope_kernel"),
+                     CLOCK.add(old, "envelope_kernel"),
+                     CLOCK.add(new, "envelope_packed_fh_kernel")])
+    require(bad == 0, "kernels", f"envelope_packed differs from the old body in {bad} words")
+    new = lambda: ke.envelope_packed(w_slice, yb)
+    t = dict(ms=cuda_ms(new, 20), device_ms=Job(jobs[0][0] + jobs[0][3]),
+             host_us=host_us(new))
+    plain_ms = cuda_ms(lambda: ke.envelope_packed_plain(w_slice, yb), 3, warm=1)
+
+    def report():
+        emit({"phase": "kernels", "kernel": "envelope_packed", "shapes": {
+            label: dict(device_ms=[CLOCK.ms(j[0]), CLOCK.ms(j[3])],
+                        old_body_device_ms=[CLOCK.ms(j[1]), CLOCK.ms(j[2])],
+                        bound_ms=12 * w.numel() / HBM_BYTES_PER_MS)
+            for (label, (w, _)), j in zip(shapes.items(), jobs)}})
+    n2 = w_slice.numel()
+    return result(err, t, plain_ms, bytes_=12 * n2, ops=ENV_OPS_PER_SITE * n2), report
 
 
 def packed_words(shape, seed, device):
@@ -370,7 +577,7 @@ def packed_words(shape, seed, device):
 def scroll_kernels(dev, results):
     """The canvas shift and the four row copies against their plain
     versions, bitwise, at the cow-lady scroll's shapes; returns the count
-    of differing words."""
+    of differing words and the archive gather study's report."""
     import numpy as np
     import torch
 
@@ -425,8 +632,16 @@ def scroll_kernels(dev, results):
     # ---- archive rows: a full scroll's 3610 ids, unique valid targets
     arch = packed_words((B, 1536), 25, dev)
     aids = torch.randperm(B, generator=g)[:nb].to(torch.int32).to(dev)
-    compare("gather_archive_rows", kb.gather_archive_rows(arch, aids),
-            kb.gather_archive_rows_plain(arch, aids))
+    # gathers of K = 1, 320 and 3610 rows with repeated ids and ids 0 and
+    # B - 1
+    for K in (1, 320, nb):
+        ids = torch.randint(0, B, (K,), generator=g, dtype=torch.int32)
+        ids[0] = B - 1
+        if K > 3:
+            ids[1], ids[2] = 0, ids[3]
+        ids = ids.to(dev)
+        compare("gather_archive_rows", kb.gather_archive_rows(arch, ids),
+                kb.gather_archive_rows_plain(arch, ids))
     arows = packed_words((nb, 512, 3), 26, dev)
     for v in ((torch.rand(nb, generator=g) < 0.5).to(torch.int32),
               torch.zeros(nb, dtype=torch.int32), torch.ones(nb, dtype=torch.int32)):
@@ -451,8 +666,6 @@ def scroll_kernels(dev, results):
         "scatter_block_rows": (
             lambda: kb.scatter_block_rows(packed, r_all, perm.to(dev), all_valid, cb),
             lambda: kb.scatter_block_rows_plain(packed, r_all, perm.to(dev), all_valid, cb)),
-        "gather_archive_rows": (lambda: kb.gather_archive_rows(arch, aids),
-                                lambda: kb.gather_archive_rows_plain(arch, aids)),
         "scatter_archive_rows": (
             lambda: kb.scatter_archive_rows(arch2, arows, aids, all_valid),
             lambda: kb.scatter_archive_rows_plain(arch2, arows, aids, all_valid)),
@@ -462,18 +675,68 @@ def scroll_kernels(dev, results):
     moved = {"shift_canvas": 2 * cv.numel() * 4,
              "gather_block_rows": 2 * s64.numel() * cb[2] * 1536 * 4,
              "scatter_block_rows": 2 * nb * 1536 * 4,
-             "gather_archive_rows": 2 * nb * 1536 * 4,
              "scatter_archive_rows": 2 * nb * 1536 * 4}
     # one PyTorch call that computes the same function, where there is one
     aids64 = aids.long()
     arows2 = arows.reshape(nb, 1536)
-    library = {"gather_archive_rows": lambda: arch.index_select(0, aids64),
-               "scatter_archive_rows": lambda: arch2.index_copy_(0, aids64, arows2)}
+    library = {"scatter_archive_rows": lambda: arch2.index_copy_(0, aids64, arows2)}
     for k, (fk, fp) in timings.items():
         results[k] = result(
-            err[k], cuda_ms(fk, 50), cuda_ms(fp, 10), bytes_=moved[k], ops=0,
-            library_ms=cuda_ms(library[k], 50) if k in library else None)
-    return bad
+            err[k], timing(fk, k + "_kernel"), cuda_ms(fp, 10), bytes_=moved[k],
+            ops=0, library=timing(library[k]) if k in library else None)
+    results["gather_archive_rows"], report = archive_gather_study(
+        dev, arch, err["gather_archive_rows"], g)
+    return bad, report
+
+
+def archive_gather_study(dev, arch, err, g):
+    """gather_archive_rows against index_select at the row counts a
+    cow-lady scroll launches (10 z-blocks times its column bucket of 32,
+    64, 128 or all 361), with warm L2 (back-to-back calls) and cold (a
+    64 MB write between calls; the 73.7 MB archive exceeds the 50 MB L2).
+    Device times in turns: kernel, index_select, index_select, kernel.
+    Returns the summary entry at K = 3610, cold (the state a scroll finds
+    the archive in; warm, L2 serves part of the reads and the time can
+    fall below the HBM bound), and a function that prints the study once
+    CLOCK has run."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
+
+    B = arch.shape[0]
+    flush = torch.empty(16 << 20, dtype=torch.int32, device=dev)
+    cold = lambda: flush.fill_(1)
+    jobs, rows = [], []
+    for K in (320, 640, 1280, 3610):
+        ids = torch.randperm(B, generator=g)[:K].to(torch.int32).to(dev)
+        ids64 = ids.long()
+        kern = (lambda ids=ids: kb.gather_archive_rows(arch, ids),
+                "gather_archive_rows_kernel")
+        lib = (lambda ids64=ids64: arch.index_select(0, ids64), None)
+        for l2 in ("warm", "cold"):
+            btw = cold if l2 == "cold" else None
+            jobs.append([CLOCK.add(f, k, btw) for f, k in (kern, lib, lib, kern)])
+            rows.append(dict(K=K, l2=l2, bound_ms=2 * K * 6144 / HBM_BYTES_PER_MS))
+            if l2 == "warm":
+                rows[-1].update(host_us=host_us(kern[0]),
+                                index_select_host_us=host_us(lib[0]))
+    # the summary entry: the last row count (3610), cold; host time is
+    # read with warm L2 (the host's work does not depend on it)
+    warm, j = rows[-2], jobs[-1]
+    entry = result(
+        err, dict(ms=cuda_ms(kern[0], 50), device_ms=Job(j[0] + j[3]),
+                  host_us=warm["host_us"]),
+        cuda_ms(lambda: kb.gather_archive_rows_plain(arch, ids), 10),
+        bytes_=2 * K * 6144, ops=0,
+        library=dict(ms=cuda_ms(lib[0], 50), device_ms=Job(j[1] + j[2]),
+                     host_us=warm["index_select_host_us"]))
+
+    def report():
+        for r, j in zip(rows, jobs):
+            r.update(device_ms=[CLOCK.ms(j[0]), CLOCK.ms(j[3])],
+                     index_select_device_ms=[CLOCK.ms(j[1]), CLOCK.ms(j[2])])
+        emit({"phase": "kernels", "kernel": "gather_archive_rows", "study": rows})
+    return entry, report
 
 
 def cost_lanes(N, L, seed, device):
@@ -528,7 +791,7 @@ def envelope_generic(dev, results):
                                                         3, warm=1), 4))
     f, pay = inputs[(100, 100)]
     results["envelope"] = result(
-        err, cuda_ms(lambda: ke.envelope(f, pay), 50),
+        err, timing(lambda: ke.envelope(f, pay), "envelope_kernel"),
         cuda_ms(lambda: ke.envelope_plain(f, pay), 10),
         bytes_=16 * f.numel(), ops=ENV_OPS_PER_SITE * f.numel())
     emit({"phase": "kernels", "kernel": "envelope", "bad": bad,
@@ -541,8 +804,6 @@ def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
     launch counters of `wrappers` are zeroed right before the first frame,
     and `loop_ctx` (a context manager) wraps the frame loop alone.
     Returns (mapper, per-frame records)."""
-    import contextlib
-
     import torch
 
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
@@ -699,7 +960,6 @@ def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None):
     the launch counters of `wrappers` are zeroed right before the first
     frame and `loop_ctx` wraps the frame loop alone.  Returns (mapper,
     per-frame records, the warnings caught)."""
-    import contextlib
     import warnings
 
     import numpy as np
@@ -778,6 +1038,25 @@ def scroll_inputs():
     return cow_lady_config(**overrides), frames, poses
 
 
+@contextlib.contextmanager
+def logged_gathers(ks):
+    """Append the row count K of every archive gather that map_state's
+    scroll launches to `ks` (the kernel's own launch count is untouched)."""
+    from gie_mapping_tpu_torch import map_state as ms
+
+    orig = ms.gather_archive_rows
+
+    def logged(a_packed, ids):
+        ks.append(int(ids.shape[0]))
+        return orig(a_packed, ids)
+
+    ms.gather_archive_rows = logged
+    try:
+        yield
+    finally:
+        ms.gather_archive_rows = orig
+
+
 def phase_scroll(dev, wrappers):
     """The cow_lady preset at its own defaults (streaming on) over the
     scroll trajectory; returns the launch counts of its run."""
@@ -791,7 +1070,9 @@ def phase_scroll(dev, wrappers):
     ref = np.load(REF_SCROLL)
     cfg, frames, poses = scroll_inputs()
     require(cfg.display_glb_edt and cfg.display_glb_ogm, ph, "streaming is off")
-    mapper, recs, caught = run_scroll(dev, cfg, frames, poses, wrappers.values())
+    gather_k = []
+    mapper, recs, caught = run_scroll(dev, cfg, frames, poses, wrappers.values(),
+                                      loop_ctx=logged_gathers(gather_k))
     launches = {k: w.launches for k, w in wrappers.items()}
     cap_warn = [str(w.message) for w in caught if issubclass(w.category, CapacityWarning)]
     for r in recs:
@@ -839,6 +1120,7 @@ def phase_scroll(dev, wrappers):
           "ms_other_frames_mean": round(float(np.mean(other_ms)), 4),
           "n_scroll_frames": len(scroll_ms), "n_other_frames": len(other_ms),
           "host_ingest_ms_mean": round(float(np.mean([r["ingest_ms"] for r in recs[1:]])), 4),
+          "gather_archive_rows_K": gather_k,
           "stream_tick_ms": round(stream_tick_ms, 4)})
     # every kernel but the generic envelope, which only the 2-D map runs
     require(all(v > 0 for k, v in launches.items() if k != "envelope"), ph,
@@ -873,7 +1155,6 @@ def run_scan(dev, cfg, scans, poses, wrappers=(), loop_ctx=None):
     launch counters of `wrappers` are zeroed right before the first frame
     and `loop_ctx` wraps the frame loop alone.  Returns (mapper, per-frame
     records, the warnings caught)."""
-    import contextlib
     import warnings
 
     import numpy as np
@@ -938,7 +1219,9 @@ def phase_scan(dev, wrappers, flat):
     ph = "scan2d_flat" if flat else "scan2d"
     ref = np.load(REF_FLAT if flat else REF_SCAN2D)
     cfg, scans, poses = scan_inputs(flat)
-    mapper, recs, caught = run_scan(dev, cfg, scans, poses, wrappers.values())
+    gather_k = []
+    mapper, recs, caught = run_scan(dev, cfg, scans, poses, wrappers.values(),
+                                    loop_ctx=logged_gathers(gather_k))
     launches = {k: w.launches for k, w in wrappers.items()}
     cap_warn = [str(w.message) for w in caught if issubclass(w.category, CapacityWarning)]
     for r in recs:
@@ -966,7 +1249,7 @@ def phase_scan(dev, wrappers, flat):
           "origins_match": origins_ok, "scroll_gate_relax_match": steps_ok,
           "frames_bitwise": out_match, "frames": len(recs),
           "state_sha_match": sha_ok, "capacity": mapper.capacity_report(),
-          "capacity_warnings": cap_warn,
+          "capacity_warnings": cap_warn, "gather_archive_rows_K": gather_k,
           "ms_per_frame_mean_after_first": round(float(np.mean(col("ms")[1:])), 4),
           "ms_scroll_frames_mean": round(float(np.mean(scroll_ms)), 4),
           "ms_other_frames_mean": round(float(np.mean(other_ms)), 4),

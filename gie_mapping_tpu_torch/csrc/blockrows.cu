@@ -22,6 +22,12 @@
 // moves at most 3,610 rows (22 MB) each way, a 64-column streaming tick 640
 // rows (3.9 MB); each CTA keeps 3 independent 16-byte loads per thread in
 // flight, and thousands of CTAs cover the latency.
+//
+// gather_archive_rows, the one of the four that PyTorch has as one call
+// (index_select), has a design of its own: a 32-thread CTA per row whose
+// lanes issue all 12 of their 16-byte loads before any store.  A design
+// with persistent CTAs and 1-D TMA bulk copies through a ring in shared
+// memory was slower at every row count, warm and cold (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -67,15 +73,26 @@ __global__ void scatter_block_rows_kernel(int4* __restrict__ cv,
     cv[canvas_quad(t, bx, by, j, Y, Lq)] = row[t];
 }
 
-__global__ void gather_archive_rows_kernel(const int4* __restrict__ arch,
-                                           const int32_t* __restrict__ ids,
-                                           int4* __restrict__ out, int B) {
+// gather_archive_rows: one warp per row, one row per CTA (a CTA per row
+// spreads even a 320-row gather over every SM).  Each lane issues its 12
+// int4 loads (a warp's load j is 512 contiguous bytes) before any store,
+// so the row's 6 KB is in flight at once.
+constexpr int kWarpRowQuads = kRowQuads / 32;  // 12 int4 per lane
+
+__global__ void __launch_bounds__(32)
+gather_archive_rows_kernel(const int4* __restrict__ arch,
+                           const int32_t* __restrict__ ids,
+                           int4* __restrict__ out, int B) {
   const int k = blockIdx.x;
   const int id = ids[k];
   if (id < 0 || id >= B) return;
-  const int4* src = arch + int64_t(id) * kRowQuads;
-  int4* dst = out + int64_t(k) * kRowQuads;
-  for (int t = threadIdx.x; t < kRowQuads; t += kThreads) dst[t] = src[t];
+  const int4* src = arch + int64_t(id) * kRowQuads + threadIdx.x;
+  int4* dst = out + int64_t(k) * kRowQuads + threadIdx.x;
+  int4 r[kWarpRowQuads];
+#pragma unroll
+  for (int j = 0; j < kWarpRowQuads; ++j) r[j] = src[j * 32];
+#pragma unroll
+  for (int j = 0; j < kWarpRowQuads; ++j) dst[j * 32] = r[j];
 }
 
 __global__ void scatter_archive_rows_kernel(int4* __restrict__ arch,
@@ -125,7 +142,7 @@ GIE_EXPORT int gie_scatter_block_rows(void* cv, const void* rows,
 GIE_EXPORT int gie_gather_archive_rows(const void* arch, const void* ids,
                                        void* out, int K, int B, void* stream) {
   if (K == 0) return 0;
-  gather_archive_rows_kernel<<<K, kThreads, 0, (cudaStream_t)stream>>>(
+  gather_archive_rows_kernel<<<K, 32, 0, (cudaStream_t)stream>>>(
       (const int4*)arch, (const int32_t*)ids, (int4*)out, B);
   return (int)cudaGetLastError();
 }

@@ -136,6 +136,12 @@ def library() -> ctypes.CDLL:
     return lib
 
 
+@functools.lru_cache(maxsize=None)
+def fn(name: str):
+    """One entry point of the loaded library (looked up once)."""
+    return getattr(library(), name)
+
+
 def check(name: str, rc: int) -> None:
     """Raise if a kernel launch returned a CUDA error code."""
     if rc != 0:
@@ -143,7 +149,17 @@ def check(name: str, rc: int) -> None:
 
 
 def stream_of(t) -> int:
-    """The current CUDA stream of a tensor's device, as a raw handle."""
+    """The current CUDA stream of a tensor's device, as a raw handle (no
+    Stream object is built: this runs on every launch)."""
+    return _raw_stream()(t.get_device())
+
+
+@functools.lru_cache(maxsize=1)
+def _raw_stream():
+    """device index -> the current stream's raw handle.  PyTorch's CUDA
+    builds export the one-call form that its own compiled kernels use;
+    the public form builds a Stream object first."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    return raw or (lambda i: torch.cuda.current_stream(i).cuda_stream)

@@ -69,11 +69,14 @@ def scatter_archive_rows_plain(a_packed, rows, ids, valid):
     return a_packed
 
 
+# The checks run on every launch, so each takes the cheap form: tensor
+# properties rather than device objects, no copy of a contiguous tensor.
 def _cuda_args(name, *ts):
+    d = ts[0].get_device()
     for t in ts:
-        if t.device.type != "cuda" or t.device != ts[0].device:
+        if not t.is_cuda or t.get_device() != d:
             raise ValueError(f"{name}: all tensors must be on one CUDA device")
-    out = [t.contiguous() for t in ts]
+    out = [t if t.is_contiguous() else t.contiguous() for t in ts]
     for t in out:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: tensors must be 16-byte aligned")
@@ -87,9 +90,11 @@ def _int32(name, *ts):
 
 
 def _device_of(name, t):
-    if t.device.type not in ("cpu", "cuda"):
+    if t.is_cuda:
+        return "cuda"
+    if t.device.type != "cpu":
         raise ValueError(f"{name}: unsupported device {t.device}")
-    return t.device.type
+    return "cpu"
 
 
 def gather_block_rows(packed, col_ids, canvas_blocks):
@@ -106,7 +111,7 @@ def gather_block_rows(packed, col_ids, canvas_blocks):
     S = ids.shape[0]
     out = torch.empty((S * cbz, VB ** 3, 3), dtype=torch.int32,
                       device=packed.device)
-    rc = _build.library().gie_gather_block_rows(
+    rc = _build.fn("gie_gather_block_rows")(
         cv.data_ptr(), ids.data_ptr(), out.data_ptr(), S, X, Y, 3 * Z, cbz,
         _build.stream_of(cv))
     gather_block_rows.launches += 1
@@ -133,7 +138,7 @@ def scatter_block_rows(packed, rows, col_ids, valid, canvas_blocks):
     cv, rs, ids, val = _cuda_args("scatter_block_rows", packed, rows, col_ids,
                                   valid)
     X, Y, Z, _ = packed.shape
-    rc = _build.library().gie_scatter_block_rows(
+    rc = _build.fn("gie_scatter_block_rows")(
         cv.data_ptr(), rs.data_ptr(), ids.data_ptr(), val.data_ptr(), S, X, Y,
         3 * Z, cbz, _build.stream_of(cv))
     scatter_block_rows.launches += 1
@@ -149,10 +154,12 @@ def gather_archive_rows(a_packed, ids):
     _int32("gather_archive_rows", a_packed, ids)
     if _device_of("gather_archive_rows", a_packed) == "cpu":
         return gather_archive_rows_plain(a_packed, ids)
+    if a_packed.dim() != 2 or a_packed.shape[1] != ROW_WORDS:
+        raise ValueError("gather_archive_rows: the archive must be [B, 1536]")
     a, i = _cuda_args("gather_archive_rows", a_packed, ids)
     K = i.shape[0]
-    out = torch.empty((K, VB ** 3, 3), dtype=torch.int32, device=a.device)
-    rc = _build.library().gie_gather_archive_rows(
+    out = a.new_empty((K, VB ** 3, 3))
+    rc = _build.fn("gie_gather_archive_rows")(
         a.data_ptr(), i.data_ptr(), out.data_ptr(), K, a.shape[0],
         _build.stream_of(a))
     gather_archive_rows.launches += 1
@@ -177,7 +184,7 @@ def scatter_archive_rows(a_packed, rows, ids, valid):
         return scatter_archive_rows_plain(a_packed, rows, ids, valid)
     a, rs, i, val = _cuda_args("scatter_archive_rows", a_packed, rows, ids,
                                valid)
-    rc = _build.library().gie_scatter_archive_rows(
+    rc = _build.fn("gie_scatter_archive_rows")(
         a.data_ptr(), rs.data_ptr(), i.data_ptr(), val.data_ptr(), K,
         a.shape[0], _build.stream_of(a))
     scatter_archive_rows.launches += 1

@@ -204,8 +204,7 @@ def carve(depth, cnt, endpoint_cnt, pvt, origin, *, local_size, voxel_width,
     k = carve_consts(n_theta, n_phi, local_size, voxel_width)
     p = [int(v) for v in np.asarray(pvt).reshape(3)]
     o = [float(v) for v in np.asarray(origin, np.float32).reshape(3)]
-    lib = _build.library()
-    rc = lib.gie_carve(
+    rc = _build.fn("gie_carve")(
         d.data_ptr(), c.data_ptr(), e.data_ptr(), inst.data_ptr(),
         rc_out.data_ptr(), X, Y, Z, *p, *o, float(np.float32(voxel_width)),
         n_theta, n_phi, k["pi"], k["theta_scale"], k["half_pi"],

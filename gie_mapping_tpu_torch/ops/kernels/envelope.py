@@ -13,6 +13,10 @@ import torch
 
 from . import _build
 
+# the O(N) phase-2 kernel keeps 8 bytes per site and lane in shared memory
+# (csrc/envelope.cu); the presets' canvases reach N = 152
+ENVELOPE_PACKED_MAX_N = 512
+
 
 def env_idx_bits(n: int) -> int:
     """Site-index bit budget of the packed envelope key for an n-site axis."""
@@ -79,19 +83,22 @@ def envelope_packed(packed: torch.Tensor, yb: int):
     f = valid ? word >> (yb+1) : cap; payload = word & ((1 << (yb+1)) - 1).
     Returns (key, payload), each shaped like `packed`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the O(N)
+    kernel, which takes N <= ENVELOPE_PACKED_MAX_N sites."""
     _check("envelope_packed", packed)
     if packed.device.type == "cpu":
         return envelope_packed_plain(packed, yb)
     N = packed.shape[0]
+    if N > ENVELOPE_PACKED_MAX_N:
+        raise ValueError(f"envelope_packed: the kernel takes at most "
+                         f"{ENVELOPE_PACKED_MAX_N} sites, got {N}")
     L = packed.numel() // max(N, 1)
     src = packed.contiguous()
     key = torch.empty_like(src)
     pay = torch.empty_like(src)
-    lib = _build.library()
-    rc = lib.gie_envelope_packed(src.data_ptr(), key.data_ptr(), pay.data_ptr(),
-                                 N, L, env_idx_bits(N), yb,
-                                 _build.stream_of(src))
+    rc = _build.fn("gie_envelope_packed")(
+        src.data_ptr(), key.data_ptr(), pay.data_ptr(), N, L, env_idx_bits(N),
+        yb, _build.stream_of(src))
     envelope_packed.launches += 1
     _build.check("gie_envelope_packed", rc)
     return key, pay
@@ -111,10 +118,9 @@ def envelope_mid(f: torch.Tensor, pay: torch.Tensor):
     ps = pay.contiguous()
     key = torch.empty_like(fs)
     pout = torch.empty_like(fs)
-    lib = _build.library()
-    rc = lib.gie_envelope_mid(fs.data_ptr(), ps.data_ptr(), key.data_ptr(),
-                              pout.data_ptr(), B, N, L, env_idx_bits(N),
-                              _build.stream_of(fs))
+    rc = _build.fn("gie_envelope_mid")(
+        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), B, N,
+        L, env_idx_bits(N), _build.stream_of(fs))
     envelope_mid.launches += 1
     _build.check("gie_envelope_mid", rc)
     return key, pout
@@ -137,10 +143,9 @@ def envelope(f: torch.Tensor, pay: torch.Tensor):
     ps = pay.contiguous()
     key = torch.empty_like(fs)
     pout = torch.empty_like(fs)
-    lib = _build.library()
-    rc = lib.gie_envelope(fs.data_ptr(), ps.data_ptr(), key.data_ptr(),
-                          pout.data_ptr(), N, L, env_idx_bits(N),
-                          _build.stream_of(fs))
+    rc = _build.fn("gie_envelope")(
+        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), N, L,
+        env_idx_bits(N), _build.stream_of(fs))
     envelope.launches += 1
     _build.check("gie_envelope", rc)
     return key, pout

@@ -82,9 +82,9 @@ def phase1_packed(vox_type: torch.Tensor, max_width: int,
     if out is None:
         out = torch.empty(vox_type.shape, dtype=torch.int32,
                           device=vox_type.device)
-    lib = _build.library()
-    rc = lib.gie_phase1_packed(src.data_ptr(), out.data_ptr(), X, Y, Z, yb,
-                               int(max_width), _build.stream_of(src))
+    rc = _build.fn("gie_phase1_packed")(
+        src.data_ptr(), out.data_ptr(), X, Y, Z, yb, int(max_width),
+        _build.stream_of(src))
     phase1_packed.launches += 1
     _build.check("gie_phase1_packed", rc)
     return out

@@ -18,6 +18,8 @@ from gie_mapping_tpu_torch.ops.kernels import envelope as ke
 from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
 from gie_mapping_tpu_torch.ops.kernels import shift as ksh
 from gie_mapping_tpu_torch.utils.config import cow_lady_config
+from test_torch_envelope_cases import CASES as ENVELOPE_CASES
+from test_torch_envelope_cases import case as envelope_case
 
 pytestmark = pytest.mark.cuda
 
@@ -55,6 +57,37 @@ def test_envelope_kernels_match_plain(dev):
     f, pay = f.to(dev), pay.to(dev)
     for a, b in zip(ke.envelope_mid(f, pay), ke.envelope_mid_plain(f, pay)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", ENVELOPE_CASES)
+def test_envelope_packed_kernel_every_lane(dev, name):
+    """The O(N) kernel on the edge cases its CPU model is held on (ties,
+    site-free lanes, N at the idx_bits boundaries, costs just below the
+    cap; lane counts that are not multiples of 32), on every lane."""
+    w, yb = envelope_case(name)
+    w = torch.from_numpy(w).to(dev)
+    for a, b in zip(ke.envelope_packed(w, yb), ke.envelope_packed_plain(w, yb)):
+        assert torch.equal(a, b)
+
+
+def test_envelope_packed_kernel_refuses_large_n(dev):
+    w = torch.zeros((ke.ENVELOPE_PACKED_MAX_N + 1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ke.envelope_packed(w, 3)
+
+
+@pytest.mark.parametrize("K", [1, 320, 3610])
+def test_gather_archive_rows_kernel(dev, K):
+    """Repeated ids and ids 0 and B - 1, at the scroll's row counts."""
+    B = 11997
+    arch = _words((B, 1536), 8).to(dev)
+    ids = torch.from_numpy(np.random.default_rng(K).integers(0, B, K).astype(np.int32))
+    ids[0] = B - 1
+    if K > 3:
+        ids[1], ids[2] = 0, ids[3]
+    ids = ids.to(dev)
+    assert torch.equal(kbr.gather_archive_rows(arch, ids),
+                       kbr.gather_archive_rows_plain(arch, ids))
 
 
 @pytest.mark.parametrize("N,L", [(1, 45), (2, 45), (100, 100), (152, 333),
