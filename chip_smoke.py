@@ -10,10 +10,12 @@ Phases, one JSON line each; any failure exits non-zero:
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the paths' shapes and at random ones (ties, empty lanes):
                 phase 1 and the three envelopes bitwise on every lane (the
-                O(N) phase-2 kernel also on the edge cases of
+                O(N) phase-2 and phase-3 kernels also on the edge cases of
                 tests/test_torch_envelope_cases.py: N from 1 to 257,
                 costs just below the cap, lane counts that are not
-                multiples of 32; the generic one at N in {1, 2, 100, 128,
+                multiples of 32; phase 1 on those of
+                tests/test_torch_phase1_cases.py;
+                the generic envelope at N in {1, 2, 100, 128,
                 152}, cap-valued sites); batch_edt / batch_edt_slab bitwise
                 against the plain chain; the carve within 0.01 % of window
                 voxels; the canvas shift and the four block/archive row
@@ -24,9 +26,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 device_ms on the profiler's device clock, host_us per
                 call), its plain version and, where one PyTorch call
                 computes the same function, that call; computes each
-                kernel's bound (see `result`).  envelope_packed against its
-                old body at three shapes, gather_archive_rows against
-                index_select at four row counts, warm and cold L2.
+                kernel's bound (see `result`).  envelope_packed and
+                envelope_mid against their old body at three shapes each,
+                phase1_packed at five shapes (against the parent's kernel
+                where PARENT_PHASE1 holds its source), gather_archive_rows
+                against index_select at four row counts, warm and cold L2.
   4. slice    - the cow-lady point-cloud frame through
                 VolumetricMapper.process_pointcloud at full size (152x152x80
                 canvas, 131072 points per frame, 12 frames, streaming off);
@@ -65,6 +69,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import ctypes
 import json
 import os
 import subprocess
@@ -83,6 +88,10 @@ SCROLL_KERNELS = ("shift_canvas", "gather_block_rows", "scatter_block_rows",
                   "gather_archive_rows", "scatter_archive_rows")
 LOG: list = []
 CARVE_TOL = 1e-4  # fraction of window voxels the carve may disagree on
+# the phase-1 study's old kernel: a copy of the parent commit's
+# csrc/phase1.cu (a thread per (x, z) column), put here by the caller; git
+# ignores the directory, and without the copy the study has no old times
+PARENT_PHASE1 = os.path.join(ROOT, "scratch_checkout", "phase1.cu")
 
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -328,7 +337,42 @@ def tie_packed(N, L, yb, device):
     return w.to(device)
 
 
-def phase_kernels(dev, results):
+def start_parent_phase1_build():
+    """Start nvcc on PARENT_PHASE1, beside the kernels' own build.  Returns
+    a function that waits for it and gives the old kernel's launcher
+    old(types, max_width, out) -> out, or None without the copy."""
+    from gie_mapping_tpu_torch.ops.kernels import _build
+
+    if not os.path.exists(PARENT_PHASE1):
+        return lambda: None
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    so = _build.BUILD_DIR / "libparent_phase1.so"
+    proc = subprocess.Popen(
+        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
+         "-o", str(so), PARENT_PHASE1], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+
+    def finish():
+        from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+
+        out, _ = proc.communicate(timeout=600)
+        require(proc.returncode == 0, "build",
+                f"nvcc on {PARENT_PHASE1}: {out[-2000:]}")
+        fn = ctypes.CDLL(str(so)).gie_phase1_packed
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+
+        def phase1(t, max_width, out):
+            X, Y, Z = t.shape
+            _build.check("parent gie_phase1_packed", fn(
+                t.data_ptr(), out.data_ptr(), X, Y, Z, kp.phase1_pack_bits(Y),
+                max_width, _build.stream_of(t)))
+            return out
+        return phase1
+    return finish
+
+
+def phase_kernels(dev, results, old_phase1):
     import numpy as np
     import torch
 
@@ -351,11 +395,11 @@ def phase_kernels(dev, results):
                 random_canvas((X, Y, Z), 0.3, 2, dev),
                 random_canvas((37, 41, 29), 0.05, 3, dev),
                 torch.zeros((16, 24, 8), dtype=torch.int8, device=dev)]
+    p1_cases = [(t, sum(t.shape)) for t in canvases]
+    p1_cases += [(torch.from_numpy(t).to(dev), mw1) for t, mw1 in phase1_cases()]
     p1_bad = 0
-    for t in canvases:
-        k = kp.phase1_packed(t, sum(t.shape))
-        p = kp.phase1_packed_plain(t, sum(t.shape))
-        p1_bad += int((k != p).sum())
+    for t, mw1 in p1_cases:  # every voxel
+        p1_bad += int((kp.phase1_packed(t, mw1) != kp.phase1_packed_plain(t, mw1)).sum())
     # the p1-cache patch: a launch on an x-slab view of a larger buffer
     full = kp.phase1_packed_plain(canvases[0], mw)
     for fx, o in ((32, 0), (48, 40), (64, 88), (96, 56)):
@@ -365,11 +409,9 @@ def phase_kernels(dev, results):
         p1_bad += int(buf[:o].abs().sum() + buf[o + fx:].abs().sum())
     torch.cuda.synchronize()
     require(p1_bad == 0, ph, f"phase1 differs from its plain version in {p1_bad} voxels")
-    t_canvas = canvases[0]
-    results["phase1"] = result(
-        0, timing(lambda: kp.phase1_packed(t_canvas, mw), "phase1_packed_kernel"),
-        cuda_ms(lambda: kp.phase1_packed_plain(t_canvas, mw), 10),
-        bytes_=5 * t_canvas.numel(), ops=P1_OPS_PER_VOXEL * t_canvas.numel())
+    results["phase1"], p1_report = phase1_study(
+        canvases[0], random_canvas((128, 128, 56), 0.02, 4, dev),
+        random_canvas((100, 100, 1), 0.01, 6, dev), old_phase1)
 
     # ---- envelopes ------------------------------------------------------------
     env_bad = {"packed": 0, "mid": 0}
@@ -399,24 +441,21 @@ def phase_kernels(dev, results):
     f[:, ::3, 1::5] = 9                          # equal costs: ties
     pay = torch.randint(0, 1 << 20, f.shape, generator=g, dtype=torch.int32) | 1
     mids.append((f.to(dev), pay.to(dev)))
-    for f, pay in mids:
+    mids += [tuple(torch.from_numpy(a).to(dev) for a in fp) for fp in envelope_cases(mid=True)]
+    for f, pay in mids:  # every lane, site-free ones included
         kk, kpay = ke.envelope_mid(f, pay)
         pk, ppay = ke.envelope_mid_plain(f, pay)
-        sited = (f < (1 << 28)).any(1, keepdim=True).expand_as(f)
-        env_bad["mid"] += int(((kk != pk) | (kpay != ppay))[sited].sum())
-        err["mid"] = max(err["mid"], int((kk - pk).abs()[sited].max()))
+        env_bad["mid"] += int(((kk != pk) | (kpay != ppay)).sum())
+        err["mid"] = max(err["mid"], int((kk.long() - pk).abs().max()))
     torch.cuda.synchronize()
     require(env_bad["packed"] == 0 and env_bad["mid"] == 0, ph,
             f"envelopes differ from their plain versions: {env_bad}")
     w0 = cases[0][0]
-    d0, p0 = mids[0]
-    n3 = d0.numel()
+    scan_canvas = random_canvas((128, 128, 56), 0.02, 4, dev)
     results["envelope_packed"], env_report = envelope_packed_study(
-        w0, yb, err["packed"], random_canvas((128, 128, 56), 0.02, 4, dev))
-    results["envelope_mid"] = result(
-        err["mid"], timing(lambda: ke.envelope_mid(d0, p0), "envelope_kernel", 20),
-        cuda_ms(lambda: ke.envelope_mid_plain(d0, p0), 3, warm=1),
-        bytes_=16 * n3, ops=ENV_OPS_PER_SITE * n3)
+        w0, yb, err["packed"], scan_canvas)
+    results["envelope_mid"], mid_report = envelope_mid_study(
+        mids[0], err["mid"], scan_canvas)
     env5_bad = envelope_generic(dev, results)
 
     # ---- batch_edt / batch_edt_slab (kernel chain vs plain chain on CPU) ------
@@ -487,7 +526,9 @@ def phase_kernels(dev, results):
     CLOCK.run()
     for entry in results.values():
         settle(entry)
+    p1_report()
     env_report()
+    mid_report()
     gather_report()
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
           "envelope_generic_bad": env5_bad,
@@ -499,16 +540,151 @@ def phase_kernels(dev, results):
     return carve_bad
 
 
-def envelope_cases():
-    """[(words int32 numpy [N, ...], yb)] of the O(N) envelope's edge cases
-    (ties, site-free and single-site lanes, N at the idx_bits boundaries,
-    costs just below the cap, falling costs): the cases on which the CPU
-    tests hold the kernel's numpy model (tests/test_torch_envelope_cases.py,
-    numpy only)."""
+def envelope_cases(mid=False):
+    """The O(N) envelopes' edge cases (ties, site-free and single-site
+    lanes, N at the idx_bits boundaries, costs just below the cap, falling
+    costs): [(words int32 numpy [N, ...], yb)] for envelope_packed, or with
+    `mid` [(f, pay) int32 numpy [B, N, L]] for envelope_mid; the cases on
+    which the CPU tests hold the kernels' numpy models
+    (tests/test_torch_envelope_cases.py, numpy only)."""
     sys.path.insert(0, os.path.join(ROOT, "tests"))
     import test_torch_envelope_cases as cases
 
+    if mid:
+        return [cases.mid_case(n) for n in cases.MID_CASES]
     return [cases.case(n) for n in cases.CASES]
+
+
+def phase1_cases():
+    """[(types int8 numpy [X, Y, Z], max_width)]: phase 1's edge cases (Y
+    across the word boundaries up to 1024, empty and full columns, ties,
+    max_width below Y, Z from 1 to 80), on which the CPU tests hold the
+    kernel's numpy model (tests/test_torch_phase1_cases.py, numpy only)."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_phase1_cases as cases
+
+    return [cases.case(n) for n in cases.CASES]
+
+
+def turns(new, old, kernel_new, kernel_old):
+    """CLOCK jobs in turns, new, old, old, new; `old` may be None."""
+    if old is None:
+        return [CLOCK.add(new, kernel_new), CLOCK.add(new, kernel_new)]
+    return [CLOCK.add(new, kernel_new), CLOCK.add(old, kernel_old),
+            CLOCK.add(old, kernel_old), CLOCK.add(new, kernel_new)]
+
+
+def turn_times(j):
+    """(new, old) device times of a `turns` list: the new kernel's two
+    readings and the old one's (None without it)."""
+    t = [CLOCK.ms(x) for x in j]
+    return (t, None) if len(t) == 2 else ([t[0], t[3]], [t[1], t[2]])
+
+
+def phase1_study(world, scan_canvas, flat_canvas, old):
+    """Phase 1 at the main paths' shapes: the slice's canvas [152, 152, 80],
+    the gate's p1-cache patches [32|96, 152, 80] (into x-slab views of a
+    cache), scan2d's canvas [128, 128, 56] and scan2d_flat's 2-D window
+    [100, 100, 1].  At each, the kernel against the parent's (`old`, built
+    from a copy of its source; None without one), bitwise, device times in
+    turns: new, old, old, new; and the z-tile width the wrapper chose.
+    Returns the summary entry (at the canvas) and a function that prints
+    the study once CLOCK has run."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+
+    cache = torch.zeros(world.shape, dtype=torch.int32, device=world.device)
+    shapes = {"152x152x80": (world, None),
+              "32x152x80_p1c": (world[56:88], cache[56:88]),
+              "96x152x80_p1c": (world[28:124], cache[28:124]),
+              "128x128x56": (scan_canvas, None),
+              "100x100x1": (flat_canvas, None)}
+    wave = kp.phase1_wave(world.get_device())
+    jobs, bad = [], 0
+    for t, out in shapes.values():
+        mw = sum(t.shape)
+        new = lambda t=t, out=out, mw=mw: kp.phase1_packed(t, mw, out=out)
+        ref = kp.phase1_packed_plain(t, mw)
+        bad += int((new() != ref).sum())
+        run_old = None
+        if old is not None:
+            o_out = torch.empty_like(ref) if out is None else out
+            run_old = lambda t=t, o_out=o_out, mw=mw: old(t, mw, o_out)
+            run_old()
+            bad += int((o_out != ref).sum())
+        jobs.append(turns(new, run_old, "phase1_bits_kernel", "phase1_packed_kernel"))
+    require(bad == 0, "kernels", f"phase1 study: {bad} voxels differ from the plain version")
+    canvas = lambda: kp.phase1_packed(world, sum(world.shape))
+    j = jobs[0]
+    t = dict(ms=cuda_ms(canvas, 50), device_ms=Job(j[0] + j[-1]), host_us=host_us(canvas))
+    plain_ms = cuda_ms(lambda: kp.phase1_packed_plain(world, sum(world.shape)), 10)
+
+    def report():
+        rows = {}
+        for (label, (t_, _)), j in zip(shapes.items(), jobs):
+            new_t, old_t = turn_times(j)
+            rows[label] = dict(device_ms=new_t, old_kernel_device_ms=old_t,
+                               tile_z=kp.phase1_tile(t_.shape[0], t_.shape[2], wave),
+                               bound_ms=5 * t_.numel() / HBM_BYTES_PER_MS)
+        emit({"phase": "kernels", "kernel": "phase1_packed", "shapes": rows})
+    n = world.numel()
+    return result(0, t, plain_ms, bytes_=5 * n, ops=P1_OPS_PER_VOXEL * n), report
+
+
+def envelope_mid_study(chain, err, scan_canvas):
+    """Phase 3 at the main paths' three shapes: the slice's full
+    [152, 80, 152] (the chain's input `chain` on the world canvas), the
+    gate's slab after frame 0 [96, 80, 96] (that input's x- and y-slab, as
+    batch_edt_slab cuts it) and scan2d's [128, 56, 128].  At each, the O(N)
+    kernel against the old body (the brute-force generic kernel on a
+    [N, B * L] copy, made outside the timed calls), both bitwise against
+    the plain version, device times in turns: new, old, old, new.  Returns
+    the summary entry (at the slice's shape) and a function that prints the
+    study once CLOCK has run."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+
+    d0, p0 = chain
+    s3 = scan_canvas.shape
+    w3 = kp.phase1_packed_plain(scan_canvas, sum(s3)).permute(0, 2, 1).contiguous()
+    pk, ppay = ke.envelope_packed_plain(w3, kp.phase1_pack_bits(s3[1]))
+    ib2 = ke.env_idx_bits(s3[0])
+    shapes = {
+        "152x80x152": (d0, p0),
+        "96x80x96": (d0[28:124, :, 28:124].contiguous(),
+                     p0[28:124, :, 28:124].contiguous()),
+        "128x56x128": (torch.where((ppay & 1) > 0, pk >> ib2, 1 << 28),
+                       ((pk & ((1 << ib2) - 1)) << 11) | ppay),
+    }
+    jobs, bad = [], 0
+    for f, pay in shapes.values():
+        B, N, L = f.shape
+        cols = lambda a: a.permute(1, 0, 2).reshape(N, B * L).contiguous()
+        fo, po = cols(f), cols(pay)
+        new = lambda f=f, pay=pay: ke.envelope_mid(f, pay)
+        old = lambda fo=fo, po=po: ke.envelope(fo, po)
+        ref = ke.envelope_mid_plain(f, pay)
+        bad += sum(int((a != b).sum()) for a, b in zip(new(), ref))
+        bad += sum(int((cols(b) != a).sum()) for a, b in zip(old(), ref))
+        jobs.append(turns(new, old, "envelope_mid_fh_kernel", "envelope_kernel"))
+    require(bad == 0, "kernels", f"envelope_mid study: {bad} words differ from the plain version")
+    new = lambda: ke.envelope_mid(d0, p0)
+    j = jobs[0]
+    t = dict(ms=cuda_ms(new, 20), device_ms=Job(j[0] + j[3]), host_us=host_us(new))
+    plain_ms = cuda_ms(lambda: ke.envelope_mid_plain(d0, p0), 3, warm=1)
+
+    def report():
+        rows = {}
+        for (label, (f, _)), j in zip(shapes.items(), jobs):
+            new_t, old_t = turn_times(j)
+            rows[label] = dict(device_ms=new_t, old_body_device_ms=old_t,
+                               bound_ms=16 * f.numel() / HBM_BYTES_PER_MS)
+        emit({"phase": "kernels", "kernel": "envelope_mid", "shapes": rows})
+    n3 = d0.numel()
+    return result(err, t, plain_ms, bytes_=16 * n3, ops=ENV_OPS_PER_SITE * n3), report
 
 
 def envelope_packed_study(w_slice, yb, err, scan_canvas):
@@ -1333,12 +1509,17 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
     t0 = time.time()
     try:
-        so, build_s = _build.build()
+        finish_parent = start_parent_phase1_build()
+        try:
+            so, build_s = _build.build()
+        finally:
+            old_phase1 = finish_parent()
         _build.library()
         emit({"phase": "build", "ok": True, "seconds": round(build_s, 3),
-              "library": os.path.relpath(so, ROOT)})
+              "library": os.path.relpath(so, ROOT),
+              "parent_phase1": old_phase1 is not None})
         results: dict = {}
-        carve_bad = phase_kernels(dev, results)
+        carve_bad = phase_kernels(dev, results, old_phase1)
         launches, frames, poses = phase_slice(dev, carve_bad)
         for path_launches in (phase_scroll(dev, all_wrappers()),
                               phase_scan(dev, all_wrappers(), flat=False),

@@ -10,7 +10,7 @@
 //     between the phases;
 //   envelope_pallas (_envelope_2d + _envelope_kernel): the generic axis-0
 //     envelope of [N, L] site costs with one separate payload (phase 2 of
-//     the 2-D, Z == 1 EDT), which is the middle-axis kernel with B = 1.
+//     the 2-D, Z == 1 EDT).
 //
 // All three compute, per output row x and lane l,
 //   key[x, l] = min_i ( min((x - i)^2 + min(f[i, l], cap), cap) << idx_bits | i )
@@ -22,10 +22,11 @@
 //
 // Two designs, one function.
 //
-// envelope_packed (phase 2, one launch per frame on every canvas-engine
-// path) runs Felzenszwalb and Huttenlocher's O(N) lower envelope with
-// exact integer boundaries.  With g_i = f_i + i^2 over the sites S whose
-// f_i < cap, site v < q wins at x (ties included) exactly when
+// envelope_packed (phase 2) and envelope_mid (phase 3), one launch each per
+// frame on every canvas-engine path, share one body (envelope_fh, templated
+// on the input form): Felzenszwalb and Huttenlocher's O(N) lower envelope
+// with exact integer boundaries.  With g_i = f_i + i^2 over the sites S
+// whose f_i < cap, site v < q wins at x (ties included) exactly when
 // x <= b(v, q) = floor((g_q - g_v) / (2 (q - v))).  Pass 1 walks sites in
 // increasing order over a stack of (site, start): it pops the top while
 // b(top, q) < start(top), tested without a division as
@@ -33,47 +34,64 @@
 // (0 on an empty stack) when that start is <= N - 1.  Pass 2 walks the
 // rows with a pointer into the stack.  A row whose best cost reaches the
 // cap (or a lane without a site) gets the plain version's answer: key
-// cap << idx_bits | 0 and site 0's payload.  Everything stays in int32:
-// f < cap = 2^(31 - idx_bits) - 1 and i^2 < 2^(2 idx_bits).
+// cap << idx_bits | 0 and site 0's payload.  Everything stays in int32 for
+// costs 0 <= f: a site's f < cap = 2^(31 - idx_bits) - 1 and i^2 < 2^(2 idx_bits).
 //
-// Bound on the H100: bytes, 12 per element (22 MB, 0.0066 ms at the cow-lady
-// slice's [152, 80 * 152]).  But one lane is a serial chain, and the slice has
-// only 12,160 lanes, about three warps per SM: a thread per lane ran 0.050 ms
-// on an H100 80GB HBM3 at 700 W, all of it chain.  So each lane's sites AND
-// rows are cut into kFhChunks chunks, one warp each: pass 1 builds one stack
-// per chunk of sites; in pass 2 each warp writes its chunk of rows, walking a
-// pointer into every chunk's stack and keeping the lexicographic min of (cost,
+// Bound on the H100: bytes, 12 per element for the packed input (22 MB,
+// 0.0066 ms at the cow-lady slice's [152, 80 * 152]), 16 for separate f and
+// payload (30 MB, 0.0088 ms at its phase-3 [152, 80, 152]).  But one lane is
+// a serial chain, and the slice has only 12,160 phase-2 lanes, about three
+// warps per SM: a thread per lane ran 0.050 ms on an H100 80GB HBM3 at
+// 700 W, all of it chain.  So each lane's sites AND rows are cut into
+// kChunks chunks, one warp each: pass 1 builds one stack per chunk of
+// sites; in pass 2 each warp writes its chunk of rows, walking a pointer
+// into every chunk's stack and keeping the lexicographic min of (cost,
 // site) (chunks come in site order, so a strict < keeps ties on the smaller
-// site).  Fewer chunks lengthen pass 1's chain, more add pass-2 work.  A CTA
-// holds 32 lanes, neighbouring threads on neighbouring lanes, so each site row
-// is one coalesced read and each output row one coalesced write.  The lanes'
-// columns are staged into shared memory by cp.async (no register holds a load);
-// the column, the stacks (int2 entries: site << 16 | start, and the site's f)
-// and the stack sizes are laid out [..][32], so a warp's accesses at any mix of
-// sites fall in 32 distinct banks.  60 KiB at N = 152, 195 KiB at the limit
-// N = 512 (above it the wrapper raises).
+// site).  Fewer chunks lengthen pass 1's chain, more add pass-2 work (every
+// row evaluates every chunk).  A CTA holds 32 lanes of one b (grid: lane
+// tiles x B, flattened), neighbouring threads on neighbouring lanes, so each
+// site row is one coalesced read and each output row one coalesced write.
+// The lanes' columns (the packed word, or f and the payload) are staged
+// into shared memory by cp.async (no register holds a load), which also
+// turns the winner's payload into a shared-memory read where neighbouring
+// lanes win at different sites; the columns, the stacks (int2 entries:
+// site << 16 | start, and the site's f) and the stack sizes are laid out
+// [..][32], so a warp's accesses at any mix of sites fall in 32 distinct
+// banks.  Phase 2 (6 chunks): 60 KiB at N = 152, 195 KiB at its limit
+// N = 512.  Phase 3 (4 chunks, the fastest of 2, 3, 4, 6 and 8 at the
+// paths' shapes on an H100 80GB HBM3 at 700 W; PERF.md): 42 KiB at N = 80,
+// so 5 CTAs fit an SM and the slice's 760 take 1.15 waves, 194 KiB at its
+// limit N = 384.  Entries of one word
+// (f read back from the column) fit 7 CTAs and one wave, but the dependent
+// read on every pop and advance made each CTA slower: on an H100 80GB HBM3
+// at 700 W that design ran 0.0170 ms against this one's 0.0197 at
+// [152, 80, 152], and 0.0119 and 0.0129 against 0.0104 and 0.0106 at the
+// gated slab's [96, 80, 96] and scan2d's [128, 56, 128], the shapes most
+// frames run.
 //
-// envelope_mid and envelope (phase 3 and the generic one) keep the first
-// design: one thread per output (x, lane) looping over every site, O(N^2)
-// per lane, neighbouring threads on neighbouring lanes.  The generic
-// entry's call on a 100 x 100 2-D window is 1 M steps in 100 x 1 CTAs: it
-// is bound by launch latency, not by the card.
+// envelope (the generic one, B = 1) keeps the first design: one thread per
+// output (x, lane) looping over every site, O(N^2) per lane, neighbouring
+// threads on neighbouring lanes.  Its call on a 100 x 100 2-D window is
+// 1 M steps in 100 x 1 CTAs: it is bound by launch latency, not by the card.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kFhLanes = 32;      // lanes per CTA
-constexpr int kFhChunks = 6;      // site (and row) chunks per lane, a warp each
-constexpr int kFhMaxSites = 512;  // shared memory: see fh_smem_bytes
+constexpr int kFhLanes = 32;           // lanes per CTA
+constexpr int kPackedChunks = 6;       // phase 2: site (and row) chunks per lane
+constexpr int kMidChunks = 4;          // phase 3
+constexpr int kPackedMaxSites = 512;   // shared memory: see fh_smem_bytes
+constexpr int kMidMaxSites = 384;
 
-__host__ __device__ constexpr int fh_chunk(int N) {
-  return (N + kFhChunks - 1) / kFhChunks;
+__host__ __device__ constexpr int fh_chunk(int N, int chunks) {
+  return (N + chunks - 1) / chunks;
 }
 
-// column [N][32] int32 + stacks [chunks][chunk + 1][32] int2 (one entry
-// for an end marker) + stack sizes [chunks][32]
-__host__ __device__ constexpr int fh_smem_bytes(int N) {
-  return 4 * kFhLanes * (N + 2 * kFhChunks * (fh_chunk(N) + 1) + kFhChunks);
+// columns [cols][N][32] int32 + stacks [chunks][chunk + 1][32] int2 (one
+// entry for an end marker) + stack sizes [chunks][32]
+__host__ __device__ constexpr int fh_smem_bytes(int N, int chunks, int cols) {
+  return 4 * kFhLanes *
+         (cols * N + 2 * chunks * (fh_chunk(N, chunks) + 1) + chunks);
 }
 
 __device__ __forceinline__ int floor_div(int a, int d) {  // d > 0
@@ -81,33 +99,45 @@ __device__ __forceinline__ int floor_div(int a, int d) {  // d > 0
   return a - q * d < 0 ? q - 1 : q;
 }
 
-// A stack entry: x = site << 16 | start, y = the site's cost f.
-__global__ void __launch_bounds__(kFhLanes * kFhChunks)
-envelope_packed_fh_kernel(const int32_t* __restrict__ w,
-                          int32_t* __restrict__ key_out,
-                          int32_t* __restrict__ pay_out, int N, int64_t L,
-                          int idx_bits, int yb) {
+__device__ __forceinline__ void cp_async4(const int32_t* smem_dst,
+                                          const int32_t* src) {
+  const uint32_t dst = (uint32_t)__cvta_generic_to_shared(smem_dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
+               "l"(src));
+}
+
+// One CTA: 32 lanes of batch row b, kChunks warps.  kPacked: `a` is phase
+// 1's packed word (f = valid ? a >> (yb + 1) : cap, payload =
+// a & ((1 << (yb + 1)) - 1)); else `a` is f and `p` the payload.  Site i of
+// lane l of row b sits at [b * N * L + i * L + l].  A stack entry: x = site
+// << 16 | start, y = the site's cost f.
+template <int kChunks, bool kPacked>
+__device__ __forceinline__ void envelope_fh(
+    const int32_t* __restrict__ a, const int32_t* __restrict__ p,
+    int32_t* __restrict__ key_out, int32_t* __restrict__ pay_out, int N,
+    int64_t L, int tiles, int idx_bits, int yb) {
   extern __shared__ int32_t smem[];
+  constexpr int kCols = kPacked ? 1 : 2;
   const int t = threadIdx.x % kFhLanes;  // lane within the CTA
   const int c = threadIdx.x / kFhLanes;  // chunk (= warp)
-  const int M = fh_chunk(N);
+  const int M = fh_chunk(N, kChunks);
   const int S = M + 1;  // stack capacity with the end marker
   const int32_t* col = smem + t;
-  const int2* stacks = (const int2*)(smem + kFhLanes * N) + t;
-  int2* stk = (int2*)(smem + kFhLanes * N) + c * S * kFhLanes + t;
-  int32_t* sizes = smem + kFhLanes * (N + 2 * kFhChunks * S) + t;
-  const int64_t lane = int64_t(blockIdx.x) * kFhLanes + t;
+  const int32_t* pcol = smem + kFhLanes * N + t;  // separate payload only
+  const int2* stacks = (const int2*)(smem + kCols * kFhLanes * N) + t;
+  int2* stk = (int2*)(smem + kCols * kFhLanes * N) + c * S * kFhLanes + t;
+  int32_t* sizes = smem + kFhLanes * (kCols * N + 2 * kChunks * S) + t;
+  const int64_t lane = int64_t(blockIdx.x % tiles) * kFhLanes + t;
+  const int64_t base = int64_t(blockIdx.x / tiles) * N * L + lane;
   const bool active = lane < L;  // every thread reaches the barriers
   const int32_t cap = (1 << (31 - idx_bits)) - 1;
   const int sh = yb + 1;
 
-  // stage the column: warp c copies rows c, c + chunks, ...
+  // stage the columns: warp c copies rows c, c + chunks, ...
   if (active) {
-    for (int i = c; i < N; i += kFhChunks) {
-      const uint32_t dst =
-          (uint32_t)__cvta_generic_to_shared(col + i * kFhLanes);
-      asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-                   "l"(w + int64_t(i) * L + lane));
+    for (int i = c; i < N; i += kChunks) {
+      cp_async4(col + i * kFhLanes, a + base + int64_t(i) * L);
+      if (!kPacked) cp_async4(pcol + i * kFhLanes, p + base + int64_t(i) * L);
     }
   }
   asm volatile("cp.async.wait_all;\n" ::: "memory");
@@ -123,8 +153,9 @@ envelope_packed_fh_kernel(const int32_t* __restrict__ w,
   for (int q = q0; q < q1; ++q) {
     const int32_t wq = wn;
     if (q + 1 < q1) wn = col[(q + 1) * kFhLanes];
-    const int32_t fq = wq >> sh;
-    if (!(wq & 1) || fq >= cap) continue;
+    if (kPacked && !(wq & 1)) continue;
+    const int32_t fq = kPacked ? wq >> sh : wq;
+    if (fq >= cap) continue;
     const int32_t gq = fq + q * q;
     while (sp > 0 && gq - tg < ts * 2 * (q - tv)) {
       if (--sp > 0) {
@@ -157,11 +188,11 @@ envelope_packed_fh_kernel(const int32_t* __restrict__ w,
   // has cost cap and never wins.
   const int x0 = c * M, x1 = min(N, x0 + M);
   if (x0 >= x1) return;
-  const int2* nxt[kFhChunks];  // the entry after the current one
-  int v[kFhChunks], ns[kFhChunks];
-  int32_t fv[kFhChunks];
+  const int2* nxt[kChunks];  // the entry after the current one
+  int v[kChunks], ns[kChunks];
+  int32_t fv[kChunks];
 #pragma unroll
-  for (int k = 0; k < kFhChunks; ++k) {
+  for (int k = 0; k < kChunks; ++k) {
     const int2* s = stacks + k * S * kFhLanes;
     int lo = 0, hi = sizes[k * kFhLanes] - 1;  // last entry starting <= x0
     while (lo < hi) {
@@ -179,7 +210,7 @@ envelope_packed_fh_kernel(const int32_t* __restrict__ w,
     int32_t bc = cap;
     int bv = 0;
 #pragma unroll
-    for (int k = 0; k < kFhChunks; ++k) {
+    for (int k = 0; k < kChunks; ++k) {
       if (ns[k] <= x) {
         const int2 e = *nxt[k];
         v[k] = e.x >> 16;
@@ -195,10 +226,47 @@ envelope_packed_fh_kernel(const int32_t* __restrict__ w,
       }
     }
     // bc == cap leaves bv = 0: the plain version's capped key and payload
-    const int64_t o = int64_t(x) * L + lane;
+    const int64_t o = base + int64_t(x) * L;
     key_out[o] = (bc << idx_bits) | bv;
-    pay_out[o] = col[bv * kFhLanes] & mask;
+    pay_out[o] = kPacked ? col[bv * kFhLanes] & mask : pcol[bv * kFhLanes];
   }
+}
+
+__global__ void __launch_bounds__(kFhLanes * kPackedChunks)
+envelope_packed_fh_kernel(const int32_t* __restrict__ w,
+                          int32_t* __restrict__ key_out,
+                          int32_t* __restrict__ pay_out, int N, int64_t L,
+                          int tiles, int idx_bits, int yb) {
+  envelope_fh<kPackedChunks, true>(w, nullptr, key_out, pay_out, N, L, tiles,
+                                   idx_bits, yb);
+}
+
+__global__ void __launch_bounds__(kFhLanes * kMidChunks)
+envelope_mid_fh_kernel(const int32_t* __restrict__ f,
+                       const int32_t* __restrict__ pay,
+                       int32_t* __restrict__ key_out,
+                       int32_t* __restrict__ pay_out, int N, int64_t L,
+                       int tiles, int idx_bits) {
+  envelope_fh<kMidChunks, false>(f, pay, key_out, pay_out, N, L, tiles,
+                                 idx_bits, 0);
+}
+
+// Raise a kernel's dynamic shared memory limit (48 KB by default) to
+// `bytes`, once per device (`raised` is the caller's flag per device).
+template <typename Kernel>
+cudaError_t allow_smem(Kernel kernel, bool (&raised)[64], int bytes) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= 64) return cudaErrorInvalidDevice;
+  if (!raised[dev]) {
+    e = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             bytes);
+    if (e != cudaSuccess) return e;
+    raised[dev] = true;
+  }
+  return cudaSuccess;
 }
 
 __global__ void envelope_kernel(const int32_t* __restrict__ f,
@@ -209,62 +277,40 @@ __global__ void envelope_kernel(const int32_t* __restrict__ f,
   const int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
   if (lane >= L) return;
   const int x = blockIdx.y;
-  const int64_t base = int64_t(blockIdx.z) * N * L + lane;
   const int32_t cap = (1 << (31 - idx_bits)) - 1;
 
   int32_t best = 0x7fffffff;
   for (int i = 0; i < N; ++i) {
     const int32_t dx = x - i;
-    const int32_t cand = min(dx * dx + min(f[base + int64_t(i) * L], cap), cap);
+    const int32_t cand = min(dx * dx + min(f[lane + int64_t(i) * L], cap), cap);
     best = min(best, (cand << idx_bits) | i);
   }
   const int site = best & ((1 << idx_bits) - 1);
-  const int64_t out = base + int64_t(x) * L;
+  const int64_t out = lane + int64_t(x) * L;
   key_out[out] = best;
-  pay_out[out] = pay[base + int64_t(site) * L];
-}
-
-int launch(const void* f, const void* pay, void* key_out, void* pay_out,
-           int B, int N, int64_t L, int idx_bits, void* stream) {
-  if (B == 0 || N == 0 || L == 0) return 0;
-  const int threads = 128;
-  const dim3 grid(unsigned((L + threads - 1) / threads), unsigned(N),
-                  unsigned(B));
-  envelope_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)f, (const int32_t*)pay, (int32_t*)key_out,
-      (int32_t*)pay_out, N, L, idx_bits);
-  return (int)cudaGetLastError();
+  pay_out[out] = pay[lane + int64_t(site) * L];
 }
 
 }  // namespace
 
-// Phase 2: packed int32 [N, L] (sites on axis 0) -> key, payload [N, L],
-// by the O(N) kernel; N <= 512 (returns cudaErrorInvalidValue above).
+// Phase 2: packed int32 [N, L] (sites on axis 0) -> key, payload [N, L];
+// N <= 512 (returns cudaErrorInvalidValue above).
 GIE_EXPORT int gie_envelope_packed(const void* packed, void* key_out,
                                    void* pay_out, int N, int64_t L,
                                    int idx_bits, int yb, void* stream) {
   if (N <= 0 || L == 0) return 0;
-  if (N > kFhMaxSites) return (int)cudaErrorInvalidValue;
-  const int smem = fh_smem_bytes(N);
-  // raise the kernel's dynamic shared memory limit (48 KB by default) once
-  // per device, to what N = kFhMaxSites needs
-  static int raised[64];
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
+  if (N > kPackedMaxSites) return (int)cudaErrorInvalidValue;
+  static bool raised[64];
+  const cudaError_t e =
+      allow_smem(envelope_packed_fh_kernel, raised,
+                 fh_smem_bytes(kPackedMaxSites, kPackedChunks, 1));
   if (e != cudaSuccess) return (int)e;
-  if (dev >= 64) return (int)cudaErrorInvalidDevice;
-  if (!raised[dev]) {
-    e = cudaFuncSetAttribute(envelope_packed_fh_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             fh_smem_bytes(kFhMaxSites));
-    if (e != cudaSuccess) return (int)e;
-    raised[dev] = 1;
-  }
-  const unsigned grid = unsigned((L + kFhLanes - 1) / kFhLanes);
-  envelope_packed_fh_kernel<<<grid, kFhLanes * kFhChunks, smem,
+  const int64_t tiles = (L + kFhLanes - 1) / kFhLanes;
+  envelope_packed_fh_kernel<<<unsigned(tiles), kFhLanes * kPackedChunks,
+                              fh_smem_bytes(N, kPackedChunks, 1),
                               (cudaStream_t)stream>>>(
       (const int32_t*)packed, (int32_t*)key_out, (int32_t*)pay_out, N, L,
-      idx_bits, yb);
+      int(tiles), idx_bits, yb);
   return (int)cudaGetLastError();
 }
 
@@ -272,12 +318,31 @@ GIE_EXPORT int gie_envelope_packed(const void* packed, void* key_out,
 GIE_EXPORT int gie_envelope(const void* f, const void* pay, void* key_out,
                             void* pay_out, int N, int64_t L, int idx_bits,
                             void* stream) {
-  return launch(f, pay, key_out, pay_out, 1, N, L, idx_bits, stream);
+  if (N <= 0 || L == 0) return 0;
+  const int threads = 128;
+  const dim3 grid(unsigned((L + threads - 1) / threads), unsigned(N));
+  envelope_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)f, (const int32_t*)pay, (int32_t*)key_out,
+      (int32_t*)pay_out, N, L, idx_bits);
+  return (int)cudaGetLastError();
 }
 
-// Phase 3: f, payload int32 [B, N, L] (sites on axis 1) -> key, payload.
+// Phase 3: f, payload int32 [B, N, L] (sites on axis 1) -> key, payload;
+// N <= 384 (returns cudaErrorInvalidValue above).
 GIE_EXPORT int gie_envelope_mid(const void* f, const void* pay, void* key_out,
                                 void* pay_out, int B, int N, int64_t L,
                                 int idx_bits, void* stream) {
-  return launch(f, pay, key_out, pay_out, B, N, L, idx_bits, stream);
+  if (B <= 0 || N <= 0 || L == 0) return 0;
+  if (N > kMidMaxSites) return (int)cudaErrorInvalidValue;
+  static bool raised[64];
+  const cudaError_t e = allow_smem(envelope_mid_fh_kernel, raised,
+                                   fh_smem_bytes(kMidMaxSites, kMidChunks, 2));
+  if (e != cudaSuccess) return (int)e;
+  const int64_t tiles = (L + kFhLanes - 1) / kFhLanes;
+  envelope_mid_fh_kernel<<<unsigned(tiles * B), kFhLanes * kMidChunks,
+                           fh_smem_bytes(N, kMidChunks, 2),
+                           (cudaStream_t)stream>>>(
+      (const int32_t*)f, (const int32_t*)pay, (int32_t*)key_out,
+      (int32_t*)pay_out, N, L, int(tiles), idx_bits);
+  return (int)cudaGetLastError();
 }

@@ -82,6 +82,18 @@ def unpack_voxels(packed: torch.Tensor):
     return occ, typ, dist, coc
 
 
+def resolve_device(device, who: str) -> torch.device:
+    """`device`, or "cuda" when it is None; raises for a CUDA device when
+    no card is available."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"{who} runs on a CUDA device and none is available; pass "
+            "device=\"cpu\" to run the plain PyTorch versions of its "
+            "kernels on the CPU")
+    return dev
+
+
 @dataclasses.dataclass
 class MapState:
     """Scrolling resident canvas + block archive (see module doc)."""
@@ -102,9 +114,10 @@ class MapState:
 
     @staticmethod
     def create(cfg: MapConfig, device=None) -> "MapState":
+        """A fresh map on `device` ("cuda" by default; see resolve_device)."""
         from .models.pipeline import p1_cache_enabled
 
-        dev = torch.device(device) if device is not None else torch.device("cpu")
+        dev = resolve_device(device, "MapState.create")
         cs = cfg.canvas_size
         cb = cfg.canvas_blocks
         B = cfg.max_blocks
@@ -144,8 +157,9 @@ def state_to_numpy(state: MapState) -> dict:
 
 def state_from_numpy(arrays: dict, device=None) -> MapState:
     """MapState from {field: numpy array} as `state_to_numpy` gives them (or
-    as the JAX package's MapState leaves convert with np.asarray)."""
-    dev = torch.device(device) if device is not None else torch.device("cpu")
+    as the JAX package's MapState leaves convert with np.asarray), on
+    `device` ("cuda" by default; see resolve_device)."""
+    dev = resolve_device(device, "state_from_numpy")
     kw = {}
     for name in FIELDS:
         a = np.array(arrays[name], order="C")  # a copy; keeps 0-d arrays 0-d

@@ -19,14 +19,15 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..map_state import MapState, canvas_geometry, shift_block_mask, stream_extract
+from ..map_state import (MapState, canvas_geometry, resolve_device,
+                         shift_block_mask, stream_extract)
 from ..ops import raycast as rc
 from ..ops.scan_sensors import ScanParam, hokuyo_update
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
 from ..utils.constants import VB_WIDTH, VOX_UNKNOWN
-from .pipeline import merge_frame, scroll_step
+from .pipeline import kernel_limits, merge_frame, scroll_step
 
 
 class FrameOutput:
@@ -109,13 +110,13 @@ class VolumetricMapper:
         if bad:
             raise NotImplementedError(
                 "not ported to PyTorch yet: " + ", ".join(bad))
+        if torch.device("cuda" if device is None else device).type == "cuda":
+            bad = kernel_limits(cfg)
+            if bad:
+                raise NotImplementedError(
+                    "beyond the CUDA kernels' limits: " + ", ".join(bad))
         self.cfg = cfg
-        self.device = torch.device("cuda" if device is None else device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                "VolumetricMapper runs on a CUDA device and none is "
-                "available; pass device=\"cpu\" to run the plain PyTorch "
-                "versions of its kernels on the CPU")
+        self.device = resolve_device(device, "VolumetricMapper")
         self.state = MapState.create(cfg, self.device)
         self.ext_obs = _ExtObs(cfg)
         self._origin = None  # host mirror of the canvas origin

@@ -29,6 +29,7 @@ import torch
 from ..map_state import COC_INVALID16, MapState, scroll_canvas
 from ..ops.edt_batch import batch_edt, batch_edt_slab
 from ..ops.fusion import _fence_mask, _lowpass
+from ..ops.kernels.envelope import ENVELOPE_MID_MAX_N, ENVELOPE_PACKED_MAX_N
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
 from ..ops.wave import (invalidate_disappeared, mark_frontiers,
                         reconcile_window, relax_fixed_point)
@@ -72,6 +73,26 @@ def p1_cache_enabled(cfg) -> bool:
     """Whether this config maintains the phase-1 cache (MapState.p1c)."""
     return (gate_enabled(cfg) and cfg.edt_p1_cache
             and phase1_fits(cfg.canvas_size[1]))
+
+
+def kernel_limits(cfg) -> list:
+    """What the card's kernels cannot take in this config's EDT (empty when
+    they take it all).  The canvas engine's EDT runs on the canvas, the
+    relax engine's on the window.  Phase 1 needs Y <= 1024; on a 3-D grid
+    the phase-2 envelope takes X <= ENVELOPE_PACKED_MAX_N sites and the
+    phase-3 one Z <= ENVELOPE_MID_MAX_N (a Z == 1 grid runs the generic
+    envelope, which has no limit)."""
+    grid = cfg.canvas_size if cfg.merge_mode == "canvas_edt" else cfg.local_size
+    X, Y, Z = grid
+    what = "canvas" if cfg.merge_mode == "canvas_edt" else "window"
+    bad = []
+    if not phase1_fits(Y):
+        bad.append(f"{what} Y = {Y} > 1024 (phase 1)")
+    if Z > 1 and X > ENVELOPE_PACKED_MAX_N:
+        bad.append(f"{what} X = {X} > {ENVELOPE_PACKED_MAX_N} (phase 2)")
+    if Z > ENVELOPE_MID_MAX_N:
+        bad.append(f"{what} Z = {Z} > {ENVELOPE_MID_MAX_N} (phase 3)")
+    return bad
 
 
 def _axis_lohi(mask1d: torch.Tensor):

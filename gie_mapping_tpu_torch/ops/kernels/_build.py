@@ -36,7 +36,8 @@ _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 SIGNATURES = {
-    "gie_phase1_packed": (_P, _P, _I, _I, _I, _I, _I, _P),
+    "gie_phase1_packed": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
+    "gie_phase1_ctas_per_sm": (),
     "gie_envelope_packed": (_P, _P, _P, _I, _L, _I, _I, _P),
     "gie_envelope_mid": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
     "gie_envelope": (_P, _P, _P, _P, _I, _L, _I, _P),

@@ -13,9 +13,11 @@ import torch
 
 from . import _build
 
-# the O(N) phase-2 kernel keeps 8 bytes per site and lane in shared memory
-# (csrc/envelope.cu); the presets' canvases reach N = 152
+# the O(N) kernels keep 12 (phase 2) or 16 (phase 3) bytes per site and
+# lane in shared memory (csrc/envelope.cu); the presets' canvases reach
+# N = 240 along x (phase 2) and 168 along z (phase 3)
 ENVELOPE_PACKED_MAX_N = 512
+ENVELOPE_MID_MAX_N = 384
 
 
 def env_idx_bits(n: int) -> int:
@@ -106,13 +108,18 @@ def envelope_packed(packed: torch.Tensor, yb: int):
 
 def envelope_mid(f: torch.Tensor, pay: torch.Tensor):
     """Phase 3: envelope over the middle axis of [B, N, ...] site costs `f`
-    with per-site payload `pay`.  Returns (key, payload) shaped like `f`.
+    (0 <= f; a site at f >= cap never wins) with per-site payload `pay`.
+    Returns (key, payload) shaped like `f`.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the O(N)
+    kernel, which takes N <= ENVELOPE_MID_MAX_N sites."""
     _check("envelope_mid", f, pay)
     if f.device.type == "cpu":
         return envelope_mid_plain(f, pay)
     B, N = f.shape[:2]
+    if N > ENVELOPE_MID_MAX_N:
+        raise ValueError(f"envelope_mid: the kernel takes at most "
+                         f"{ENVELOPE_MID_MAX_N} sites, got {N}")
     L = f.numel() // max(B * N, 1)
     fs = f.contiguous()
     ps = pay.contiguous()

@@ -11,11 +11,12 @@ lower y), valid = g1 < max_width.
 """
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ...utils.constants import VOX_OCCUPIED
 from . import _build
-
 
 def phase1_fits(Y: int) -> bool:
     """True iff the packed word has room (Y <= 1024)."""
@@ -52,13 +53,36 @@ def phase1_packed_plain(vox_type: torch.Tensor, max_width: int) -> torch.Tensor:
     return torch.where(valid, word, 0).to(torch.int32)
 
 
+def phase1_tile(X: int, Z: int, wave: int) -> int:
+    """z-columns per CTA: 8 where the grid (X times the z-tiles) then fits
+    one wave of the card (`wave`: the CTAs of the 8-column kernel that it
+    holds at once, phase1_wave), else 16; at most Z rounded up to a power of
+    two.  Of the widths 1 to 32, 8 ran fastest on an H100 wherever its grid
+    fit one wave, 16 at the full canvas (PERF.md)."""
+    tz = 8 if X * -(-Z // 8) <= wave else 16
+    return min(tz, 1 << (Z - 1).bit_length())
+
+
+@functools.lru_cache(maxsize=None)
+def phase1_wave(index: int) -> int:
+    """The CTAs of the 8-column kernel that CUDA device `index` holds at
+    once: its SM count times the occupancy the driver reports for this
+    build."""
+    with torch.cuda.device(index):
+        n = _build.fn("gie_phase1_ctas_per_sm")()
+    if n <= 0:
+        raise RuntimeError(f"gie_phase1_ctas_per_sm: CUDA error {-n}")
+    return n * torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def phase1_packed(vox_type: torch.Tensor, max_width: int,
                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Packed phase-1 word of an int8 [X, Y, Z] type canvas (OCCUPIED voxels
     are the sites).  `out` (int32, same shape, contiguous) receives the
     result in place, e.g. an x-slab view of the phase-1 cache.
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel with
+    phase1_tile's z-columns per CTA."""
     if vox_type.dim() != 3 or vox_type.dtype != torch.int8:
         raise TypeError(f"phase1_packed wants int8 [X, Y, Z], got "
                         f"{vox_type.dtype} {tuple(vox_type.shape)}")
@@ -84,7 +108,7 @@ def phase1_packed(vox_type: torch.Tensor, max_width: int,
                           device=vox_type.device)
     rc = _build.fn("gie_phase1_packed")(
         src.data_ptr(), out.data_ptr(), X, Y, Z, yb, int(max_width),
-        _build.stream_of(src))
+        phase1_tile(X, Z, phase1_wave(src.get_device())), _build.stream_of(src))
     phase1_packed.launches += 1
     _build.check("gie_phase1_packed", rc)
     return out

@@ -112,6 +112,67 @@ def test_default_device_is_cuda_and_never_falls_back(monkeypatch):
         VolumetricMapper(tcfg.cow_lady_config(), device="cuda")
 
 
+def test_state_constructors_default_to_the_card(monkeypatch):
+    """MapState.create and state_from_numpy run on the card unless told
+    otherwise, and raise without one, as the mapper does."""
+    import torch
+
+    from gie_mapping_tpu_torch import map_state as ms
+
+    cfg = tcfg.cow_lady_config(local_size_m=(4.0, 4.0, 1.6), max_blocks=64)
+    st = ms.state_to_numpy(ms.MapState.create(cfg, device="cpu"))
+    assert ms.state_from_numpy(st, device="cpu").vox_type.device.type == "cpu"
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ms.MapState.create(cfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ms.state_from_numpy(st)
+
+
+def _around_limit(axis, limit, merge_mode):
+    """scan2D configs whose EDT grid (the canvas, or the relax engine's
+    window) along `axis` is the largest within `limit` and the smallest
+    above it, the window grown one voxel at a time."""
+    size = [10.0, 10.0, 3.0]
+    under = None
+    for n in range(1, 2 * limit):
+        size[axis] = round(n * 0.1, 6)
+        cfg = tcfg.scan2d_config(local_size_m=tuple(size), merge_mode=merge_mode)
+        grid = cfg.canvas_size if merge_mode == "canvas_edt" else cfg.local_size
+        if grid[axis] > limit:
+            return under, cfg
+        under = cfg
+    raise AssertionError("limit not reached")
+
+
+@pytest.mark.parametrize("axis,limit,merge_mode", [
+    (0, "packed", "canvas_edt"), (1, "phase1", "canvas_edt"),
+    (2, "mid", "canvas_edt"), (0, "packed", "relax"), (2, "mid", "relax")])
+def test_configs_beyond_the_kernels_limits_are_refused(monkeypatch, axis, limit,
+                                                       merge_mode):
+    """On a CUDA device the mapper refuses, when it is built, a config whose
+    EDT grid is beyond a kernel's limit (phase 1: Y <= 1024; the phase-2
+    envelope: X sites; the phase-3 one: Z sites), instead of raising inside
+    the first EDT; a config just within the limits passes that check."""
+    import torch
+
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.models.pipeline import kernel_limits
+    from gie_mapping_tpu_torch.ops.kernels import envelope as tenv
+
+    n = {"packed": tenv.ENVELOPE_PACKED_MAX_N, "phase1": 1024,
+         "mid": tenv.ENVELOPE_MID_MAX_N}[limit]
+    under, over = _around_limit(axis, n, merge_mode)
+    assert kernel_limits(under) == [] and len(kernel_limits(over)) == 1
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(NotImplementedError, match="limits"):
+        VolumetricMapper(over, device="cuda")
+    with pytest.raises(NotImplementedError, match="limits"):
+        VolumetricMapper(over)
+    with pytest.raises(RuntimeError, match="CUDA"):  # past the check: no card
+        VolumetricMapper(under, device="cuda")
+
+
 def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys

@@ -19,7 +19,10 @@ from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
 from gie_mapping_tpu_torch.ops.kernels import shift as ksh
 from gie_mapping_tpu_torch.utils.config import cow_lady_config
 from test_torch_envelope_cases import CASES as ENVELOPE_CASES
+from test_torch_envelope_cases import MID_CASES, mid_case
 from test_torch_envelope_cases import case as envelope_case
+from test_torch_phase1_cases import CASES as PHASE1_CASES
+from test_torch_phase1_cases import case as phase1_case
 
 pytestmark = pytest.mark.cuda
 
@@ -42,6 +45,46 @@ def test_phase1_kernel_matches_plain(dev, shape):
     t = _types(shape, 0.03, 1).to(dev)
     got = kp.phase1_packed(t, sum(shape))
     assert torch.equal(got, kp.phase1_packed_plain(t, sum(shape)))
+
+
+@pytest.mark.parametrize("name", PHASE1_CASES)
+def test_phase1_kernel_every_voxel(dev, name):
+    """The kernel on the edge cases its CPU model is held on (Y across the
+    word boundaries up to 1024, empty and full columns, ties, max_width
+    below Y, Z from 1 to 80)."""
+    t, mw = phase1_case(name)
+    t = torch.from_numpy(t).to(dev)
+    assert torch.equal(kp.phase1_packed(t, mw), kp.phase1_packed_plain(t, mw))
+
+
+@pytest.mark.parametrize("shape,tile_z", [
+    ((3, 33, 1), 1), ((3, 33, 2), 2), ((5, 40, 3), 4), ((5, 40, 5), 8),
+    ((96, 152, 80), 8), ((152, 152, 80), 16)])
+def test_phase1_kernel_at_every_tile_width(dev, shape, tile_z):
+    """Shapes at which the wrapper picks each width the kernel takes (the
+    last two on a card of at most 1,520 resident 8-column CTAs, such as the
+    H100: the driver's occupancy times the SMs)."""
+    wave = kp.phase1_wave(dev.index or 0)
+    assert 0 < wave // torch.cuda.get_device_properties(dev).multi_processor_count <= 8
+    if shape[0] == 152:
+        assert wave < 1520
+    assert kp.phase1_tile(shape[0], shape[2], wave) == tile_z
+    t = _types(shape, 0.03, 11).to(dev)
+    mw = sum(shape)
+    assert torch.equal(kp.phase1_packed(t, mw), kp.phase1_packed_plain(t, mw))
+
+
+def test_phase1_kernel_slab_write(dev):
+    """The p1-cache patch: x-slabs written in place into a larger buffer
+    equal the whole canvas's result there, and no other word changes."""
+    t = _types((152, 152, 80), 0.03, 8).to(dev)
+    mw = 384
+    full = kp.phase1_packed_plain(t, mw)
+    for o, fx in ((0, 32), (40, 48), (88, 64), (56, 96), (151, 1)):
+        buf = torch.full_like(full, -5)
+        kp.phase1_packed(t[o:o + fx], mw, out=buf[o:o + fx])
+        assert torch.equal(buf[o:o + fx], full[o:o + fx])
+        assert (buf[:o] == -5).all() and (buf[o + fx:] == -5).all()
 
 
 def test_envelope_kernels_match_plain(dev):
@@ -74,6 +117,33 @@ def test_envelope_packed_kernel_refuses_large_n(dev):
     w = torch.zeros((ke.ENVELOPE_PACKED_MAX_N + 1, 4), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError):
         ke.envelope_packed(w, 3)
+
+
+@pytest.mark.parametrize("name", MID_CASES)
+def test_envelope_mid_kernel_every_lane(dev, name):
+    """The O(N) phase-3 kernel on the edge cases its CPU model is held on
+    (ties, site-free lanes, sites at 1 << 28, N at the idx_bits
+    boundaries, near-cap and falling costs, lane counts off multiples of
+    32, several batch rows), on every lane."""
+    f, pay = (torch.from_numpy(a).to(dev) for a in mid_case(name))
+    for a, b in zip(ke.envelope_mid(f, pay), ke.envelope_mid_plain(f, pay)):
+        assert torch.equal(a, b)
+
+
+def test_envelope_mid_kernel_limits(dev):
+    """At the largest N it takes the kernel still agrees; above it the
+    wrapper raises."""
+    g = torch.Generator().manual_seed(9)
+    N = ke.ENVELOPE_MID_MAX_N
+    f = torch.randint(0, 1 << 12, (2, N, 40), generator=g, dtype=torch.int32)
+    f[torch.rand(f.shape, generator=g) < 0.9] = 1 << 28
+    pay = torch.randint(0, 1 << 30, f.shape, generator=g, dtype=torch.int32)
+    f, pay = f.to(dev), pay.to(dev)
+    for a, b in zip(ke.envelope_mid(f, pay), ke.envelope_mid_plain(f, pay)):
+        assert torch.equal(a, b)
+    big = torch.zeros((1, N + 1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ke.envelope_mid(big, big)
 
 
 @pytest.mark.parametrize("K", [1, 320, 3610])
@@ -211,7 +281,7 @@ def test_blockrows_kernels_match_plain(dev):
 def test_do_scroll_on_gpu_matches_cpu(dev):
     cfg = cow_lady_config(local_size_m=(4.0, 4.0, 1.6), max_blocks=512)
     rng = np.random.default_rng(6)
-    st = ms.state_to_numpy(ms.MapState.create(cfg))
+    st = ms.state_to_numpy(ms.MapState.create(cfg, device="cpu"))
     cs = cfg.canvas_size
     st["occ_val"] = rng.integers(0, 255, cs, dtype=np.uint8)
     st["vox_type"] = rng.integers(0, 4, cs).astype(np.int8)
@@ -219,7 +289,7 @@ def test_do_scroll_on_gpu_matches_cpu(dev):
     st["coc"] = rng.integers(-100, 100, cs + (3,)).astype(np.int16)
     st["present"] = rng.random(cfg.canvas_blocks) < 0.7
     old = np.zeros(3, np.int32)
-    a, b = ms.state_from_numpy(st), ms.state_from_numpy(st, dev)
+    a, b = ms.state_from_numpy(st, device="cpu"), ms.state_from_numpy(st, dev)
     for new in ((2, 0, 0), (0, -1, 1), (30, 0, 0), (0, 0, 0)):
         new = np.asarray(new, np.int32)
         a = ms._do_scroll(a, new, cfg, old_origin_blk=old)

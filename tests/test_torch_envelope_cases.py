@@ -1,12 +1,16 @@
-"""The edge cases of the O(N) envelope (csrc/envelope.cu, envelope_packed):
-phase-1 packed words [N, ...] int32 and their yb, by name.
+"""The edge cases of the O(N) envelopes (csrc/envelope.cu), by name:
+`case` gives envelope_packed's phase-1 packed words [N, ...] int32 and
+their yb; `mid_case` gives envelope_mid's site costs and payloads
+[B, N, L] int32.
 
 Ties, site-free and single-site lanes, N at the idx_bits boundaries, costs
-at and just below the cap, falling costs (negative numerators), lane counts
-that are not multiples of 32.  The CPU tests hold the kernel's numpy model
-on them (tests/test_torch_envelope_packed.py); tests/test_torch_cuda.py and
-chip_smoke.py hold the kernel on the card.  numpy and the port only: this
-module holds no tests and imports neither pytest nor JAX.
+at and just below the cap, sites at 1 << 28 (the chain's "no site"),
+falling costs (negative numerators), lane counts that are not multiples of
+32, several batch rows.  The CPU tests hold the kernels' numpy models on
+them (tests/test_torch_envelope_packed.py, tests/test_torch_envelope_mid.py);
+tests/test_torch_cuda.py and chip_smoke.py hold the kernels on the card.
+numpy and the port only: this module holds no tests and imports neither
+pytest nor JAX.
 """
 import numpy as np
 
@@ -101,3 +105,96 @@ CASES = (["ties", "site_free", "sparse_152", "slab_3d"]
          + [f"random_N{n}" for n in (1, 2, 3, 152, 255, 256, 257)]
          + [f"near_cap_N{n}" for n in (1, 2, 3, 152, 257)]
          + [f"falling_N{n}" for n in (3, 152, 257)])
+
+
+# ---- envelope_mid: (f, pay) int32 [B, N, L] ---------------------------------
+BIG = 1 << 28  # the chain's cost of a site without a phase-2 distance
+
+
+def mid_payload(f, rng):
+    """The chain's payload form: any bits above a valid bit (f < BIG)."""
+    return ((rng.integers(0, 1 << 19, f.shape) << 1)
+            | (f < BIG)).astype(np.int32)
+
+
+def mid_random(B, N, L, seed, density=0.3, fmax=400):
+    """Random sites at cost f < fmax, others at BIG; with L > 3, lane 0 of
+    every row site-free, lane 1 a single site at N - 1, lane 2 a single
+    site at 0, lane 3 a site at every row."""
+    rng = np.random.default_rng(seed)
+    f = rng.integers(0, fmax, (B, N, L))
+    f[rng.random((B, N, L)) >= density] = BIG
+    if L > 3:
+        f[:, :, 0:3] = BIG
+        f[:, -1, 1] = rng.integers(0, fmax, B)
+        f[:, 0, 2] = rng.integers(0, fmax, B)
+        f[:, :, 3] = rng.integers(0, fmax, (B, N))
+    return f.astype(np.int32), mid_payload(f, rng)
+
+
+def mid_ties(B, N, L):
+    """Many equal-cost sites per lane (distance ties), every 7th lane
+    without a site."""
+    f = np.full((B, N, L), BIG, np.int64)
+    for b in range(B):
+        for l in range(L):
+            if (l + b) % 7 == 0:
+                continue
+            f[b, (l + b) % 3::2 + (l + b) % 5, l] = ((l + b) % 4) ** 2
+    return f.astype(np.int32), mid_payload(f, np.random.default_rng(B * N + L))
+
+
+def mid_near_cap(B, N, L, seed):
+    """Costs just below, at and above the cap, BIG, and a low site on every
+    5th lane; every 5th lane from 1 has one near-cap site, so rows away from
+    it cap."""
+    ib = tenv.env_idx_bits(N)
+    cap = (1 << (31 - ib)) - 1
+    rng = np.random.default_rng(seed)
+    f = cap - rng.integers(0, 3 * N, (B, N, L))
+    f[rng.random((B, N, L)) < 0.1] = cap
+    f[rng.random((B, N, L)) < 0.05] = cap + rng.integers(1, 50)
+    f[rng.random((B, N, L)) < 0.3] = BIG
+    f[:, :, ::5] = np.where(rng.random((B, N, len(range(0, L, 5)))) < 0.5,
+                            rng.integers(0, 50, (B, N, len(range(0, L, 5)))), BIG)
+    f[:, :, 1::5] = BIG
+    f[:, rng.integers(0, N), 1::5] = cap - rng.integers(0, 3 * N)
+    f = np.minimum(f, (1 << 31) - 1)
+    return f.astype(np.int32), mid_payload(f, rng)
+
+
+def mid_falling(B, N, L, seed):
+    """Costs falling steeply with the site index: negative numerators at
+    the pop test and the push boundary."""
+    rng = np.random.default_rng(seed)
+    f = (N - np.arange(N))[None, :, None] ** 2 * 4 + rng.integers(0, 3, (B, N, L))
+    f[rng.random((B, N, L)) >= 0.6] = BIG
+    return f.astype(np.int32), mid_payload(f, rng)
+
+
+def mid_case(name):
+    if name == "mid_ties":
+        return mid_ties(3, 50, 45)
+    if name == "mid_site_free":
+        f, pay = mid_random(2, 40, 33, seed=3, density=0.0)
+        f[1, 17, 9] = 5  # one single-site lane among site-free ones
+        return f, pay
+    if name.startswith("mid_random_N"):
+        N = int(name[len("mid_random_N"):])
+        return mid_random(2, N, 37, seed=N, density=0.05 if N > 100 else 0.3)
+    if name.startswith("mid_L"):
+        L = int(name[len("mid_L"):])
+        return mid_random(3, 80, L, seed=L + 1, density=0.1)
+    if name.startswith("mid_near_cap_N"):
+        return mid_near_cap(2, int(name[len("mid_near_cap_N"):]), 40, seed=11)
+    if name.startswith("mid_falling_N"):
+        N = int(name[len("mid_falling_N"):])
+        return mid_falling(2, N, 35, seed=N)
+    raise KeyError(name)
+
+
+MID_CASES = (["mid_ties", "mid_site_free"]
+             + [f"mid_random_N{n}" for n in (1, 2, 7, 8, 9, 56, 80, 128, 129, 257)]
+             + [f"mid_L{n}" for n in (1, 31, 33, 152)]
+             + [f"mid_near_cap_N{n}" for n in (1, 2, 9, 80, 257)]
+             + [f"mid_falling_N{n}" for n in (9, 80, 257)])

@@ -2,8 +2,9 @@
 step for step in numpy, against the port's plain version and the JAX
 package's Pallas kernel.
 
-The CUDA kernel cannot run on the CPU, so `envelope_fh` below repeats its
-arithmetic: one column of the phase-1 packed word per lane, all lanes in
+The CUDA kernel cannot run on the CPU, so `fh_envelope` below repeats the
+arithmetic of its body (shared with envelope_mid, tests/
+test_torch_envelope_mid.py): one column of sites per lane, all lanes in
 lockstep as the threads of a warp run them (each lane with its own stack
 and pointer, a mask where the CUDA code branches).  Each lane's sites and
 rows are cut into six chunks, one warp each.  Pass 1 walks a chunk's
@@ -57,33 +58,43 @@ def floor_div(a, d):
     return np.where(a - q * d < 0, q - 1, q).astype(np.int32)
 
 
-CHUNKS = 6  # kFhChunks of csrc/envelope.cu
+CHUNKS = 6  # kPackedChunks of csrc/envelope.cu
 
 
 def envelope_fh(w, yb):
     """numpy model of the CUDA envelope_packed kernel: (key, pay) int32
-    shaped like w [N, ...]."""
+    shaped like w [N, ...].  The kernel unpacks each word where it reads it
+    (f = valid ? w >> (yb + 1) : cap, payload = w & mask); the model unpacks
+    first, then runs the shared body."""
     shape = w.shape
     N = shape[0]
     w = w.reshape(N, -1).astype(np.int32)
-    L = w.shape[1]
+    cap = np.int32((1 << (31 - tenv.env_idx_bits(N))) - 1)
+    f = np.where((w & 1) != 0, w >> (yb + 1), cap).astype(np.int32)
+    key, pay = fh_envelope(f, w & np.int32((1 << (yb + 1)) - 1), CHUNKS)
+    return key.reshape(shape), pay.reshape(shape)
+
+
+def fh_envelope(f, p, chunks):
+    """numpy model of csrc/envelope.cu's shared O(N) body (envelope_fh):
+    site costs f and payloads p, int32 [N, L] (a site at f >= cap is
+    none) -> (key, pay) int32 [N, L], with `chunks` site chunks per lane."""
+    N, L = f.shape
     lanes = np.arange(L)
     ib = tenv.env_idx_bits(N)
     cap = np.int32((1 << (31 - ib)) - 1)
-    mask = np.int32((1 << (yb + 1)) - 1)
-    g = lambda site: (w[site, lanes] >> (yb + 1)) + site * site
-    M = -(-N // CHUNKS)
-    stacks = np.zeros((CHUNKS, M, L), np.int32)
-    sizes = np.zeros((CHUNKS, L), np.int32)
+    g = lambda site: f[site, lanes] + site * site
+    M = -(-N // chunks)
+    stacks = np.zeros((chunks, M, L), np.int32)
+    sizes = np.zeros((chunks, L), np.int32)
 
     # pass 1, one warp per chunk (the warps run in parallel on the card):
     # the stack of (site << 16 | start) of sites [c M, c M + M)
-    for c in range(CHUNKS):
+    for c in range(chunks):
         stk, sp = stacks[c], sizes[c]
         for q in range(c * M, min(N, c * M + M)):
-            wq = w[q]
-            fq = wq >> (yb + 1)
-            act = ((wq & 1) != 0) & (fq < cap)
+            fq = f[q]
+            act = fq < cap
             gq = fq + np.int32(q * q)
             while True:  # pop while b(top, q) < start(top)
                 top = stk[np.maximum(sp - 1, 0), lanes]
@@ -109,13 +120,13 @@ def envelope_fh(w, yb):
     # start no row reaches).  A chunk without a site has cost cap.
     end = np.int32(0xFFFF)
     key = np.empty((N, L), np.int32)
-    for c in range(CHUNKS):
+    for c in range(chunks):
         x0, x1 = c * M, min(N, c * M + M)
         if x0 >= x1:
             continue
         entry = lambda k, i: np.where(i < sizes[k], stacks[k][np.minimum(i, M - 1), lanes], end)
         nxt, v, fv = [], [], []
-        for k in range(CHUNKS):
+        for k in range(chunks):
             lo, hi = np.zeros(L, np.int32), sizes[k] - 1
             while (lo < hi).any():
                 mid = (lo + hi + 1) >> 1
@@ -125,21 +136,20 @@ def envelope_fh(w, yb):
                 hi = np.where(run & ~ok, mid - 1, hi)
             sited = hi >= 0
             v.append(np.where(sited, entry(k, lo) >> 16, 0))
-            fv.append(np.where(sited, w[v[k], lanes] >> (yb + 1), cap))
+            fv.append(np.where(sited, f[v[k], lanes], cap))
             nxt.append(np.where(sited, lo + 1, 0))
         for x in range(x0, x1):
             bc, bv = np.full(L, cap, np.int32), np.zeros(L, np.int32)
-            for k in range(CHUNKS):
+            for k in range(chunks):
                 adv = (entry(k, nxt[k]) & 0xFFFF) <= x
                 v[k] = np.where(adv, entry(k, nxt[k]) >> 16, v[k])
-                fv[k] = np.where(adv, w[v[k], lanes] >> (yb + 1), fv[k])
+                fv[k] = np.where(adv, f[v[k], lanes], fv[k])
                 nxt[k] = nxt[k] + adv
                 cost = (x - v[k]) * (x - v[k]) + fv[k]
                 bv = np.where(cost < bc, v[k], bv)
                 bc = np.minimum(cost, bc)
             key[x] = (bc << ib) | bv  # bc == cap leaves bv = 0: the capped key
-    pay = w[key & ((1 << ib) - 1), lanes] & mask
-    return key.reshape(shape), pay.reshape(shape)
+    return key, p[key & ((1 << ib) - 1), lanes]
 
 
 @pytest.mark.parametrize("name", CASES)

@@ -240,7 +240,7 @@ def test_do_scroll_matches_jax(case):
     rng = np.random.default_rng(sorted(ORIGINS).index(case))
     st = _rand_state(jc, rng, n_arch=40)
     js = jms.MapState(**{k: jnp.asarray(v) for k, v in st.items()})
-    ts = state_from_numpy(st)
+    ts = state_from_numpy(st, device="cpu")
     old = np.zeros(3, np.int32)
     n_arch = []
     for step in ORIGINS[case]:
@@ -269,7 +269,7 @@ def test_stream_extract_matches_jax():
     rng = np.random.default_rng(5)
     st = _rand_state(jc, rng, n_arch=0)
     js = jms.MapState(**{k: jnp.asarray(v) for k, v in st.items()})
-    ts = state_from_numpy(st)
+    ts = state_from_numpy(st, device="cpu")
     cb = jc.canvas_blocks
     changed = rng.random(cb) < 0.3
     carry = rng.random(cb) < 0.1

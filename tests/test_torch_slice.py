@@ -108,7 +108,7 @@ def test_slice_from_carried_jax_state():
         jm.process_pointcloud(jp, WORLD.pointcloud(jp, n_rays=4096,
                                                    max_range=8.0, seed=i))
     tm = TorchMapper(tcfg.cow_lady_config(**SMALL), device="cpu")
-    tm.state = state_from_numpy(_jax_state(jm))
+    tm.state = state_from_numpy(_jax_state(jm), device="cpu")
     np.testing.assert_array_equal(state_to_numpy(tm.state)["a_packed"],
                                   _jax_state(jm)["a_packed"])
     tm._origin = jm._origin.copy()
@@ -150,7 +150,7 @@ def test_state_roundtrip_and_packing():
     from gie_mapping_tpu_torch import map_state as tms
 
     cfg = tcfg.cow_lady_config(**SMALL)
-    s = tms.MapState.create(cfg)
+    s = tms.MapState.create(cfg, device="cpu")
     js = jms.MapState.create(jcfg.cow_lady_config(**SMALL))
     for k in FIELDS:
         np.testing.assert_array_equal(state_to_numpy(s)[k],
