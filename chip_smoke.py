@@ -9,38 +9,40 @@ Phases, one JSON line each; any failure exits non-zero:
   2. build    - compiles the CUDA kernels (csrc/) with nvcc.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the paths' shapes and at random ones (ties, empty lanes):
-                phase 1 and the three envelopes bitwise on every lane (the
-                O(N) phase-2 and phase-3 kernels also on the edge cases of
-                tests/test_torch_envelope_cases.py: N from 1 to 257,
-                costs just below the cap, lane counts that are not
-                multiples of 32; phase 1 on those of
-                tests/test_torch_phase1_cases.py;
-                the generic envelope at N in {1, 2, 100, 128,
-                152}, cap-valued sites); batch_edt / batch_edt_slab bitwise
-                against the plain chain; the carve within 0.01 % of window
-                voxels; the canvas shift and the four block/archive row
-                copies bitwise (every z arm, shifts past the canvas,
-                sentinel cocs, all-invalid and repeated ids; archive
-                gathers of 1, 320 and 3610 rows).  Times
-                each kernel (`timing`: ms over back-to-back calls,
-                device_ms on the profiler's device clock, host_us per
-                call), its plain version and, where one PyTorch call
-                computes the same function, that call; computes each
-                kernel's bound (see `result`).  envelope_packed and
-                envelope_mid against their old body at three shapes each,
-                phase1_packed at five shapes (against the parent's kernel
-                where PARENT_PHASE1 holds its source), gather_archive_rows
-                against index_select at four row counts, warm and cold L2.
+                phase 1 and the three envelopes bitwise on every lane (also
+                on the edge cases of tests/test_torch_envelope_cases.py:
+                N from 1 to 257, costs just below the cap, lane counts that
+                are not multiples of 32; phase 1 on those of
+                tests/test_torch_phase1_cases.py; the generic envelope
+                also at N in {1, 2, 100, 128, 152}, cap-valued sites);
+                batch_edt / batch_edt_slab bitwise against the plain chain;
+                the panorama and the carve bitwise on every bin and voxel
+                (the cow-lady window at three poses, the ugv_corridor
+                window, the cases of tests/test_torch_carve_cases.py); the
+                canvas shift and the four block/archive row copies bitwise
+                (every z arm, shifts past the canvas, sentinel cocs,
+                all-invalid and repeated ids; archive gathers of 1, 320
+                and 3610 rows).  Times each kernel (`timing`: ms over
+                back-to-back calls, device_ms on the profiler's device
+                clock, host_us per call), its plain version and, where one
+                PyTorch call computes the same function, that call;
+                computes each kernel's bound (see `result`).  Where PARENT
+                holds a copy of the parent commit's package, the kernels
+                against the parent's at the paths' shapes, in turns
+                (phase1_packed at five shapes, the three envelopes and the
+                carve at two or three, and the whole sensor model,
+                pointcloud_project); gather_archive_rows against
+                index_select at four row counts, warm and cold L2.
   4. slice    - the cow-lady point-cloud frame through
                 VolumetricMapper.process_pointcloud at full size (152x152x80
                 canvas, 131072 points per frame, 12 frames, streaming off);
-                its four kernels must have launched; the final canvas EDT
+                its five kernels must have launched; the final canvas EDT
                 must equal scipy's exactly; the run must agree with the JAX
                 package's results (tests/fixtures/torch_port_cow_ref.npz).
   5. scroll   - the cow_lady preset at its own defaults (streaming on) over
                 26 poses that scroll in x both ways, in z and by a teleport
-                past the canvas and back; all nine kernels must have
-                launched, no CapacityWarning may fire, the final canvas EDT
+                past the canvas and back; all ten kernels of the path must
+                have launched, no CapacityWarning may fire, the final canvas EDT
                 must equal scipy's, and origins, every frame's outputs, the
                 final state and the host mirror must equal the JAX package's
                 (tests/fixtures/torch_port_cow_scroll_ref.npz).
@@ -69,7 +71,6 @@ from __future__ import annotations
 
 import argparse
 import contextlib
-import ctypes
 import json
 import os
 import subprocess
@@ -87,11 +88,10 @@ FLAT = dict(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
 SCROLL_KERNELS = ("shift_canvas", "gather_block_rows", "scatter_block_rows",
                   "gather_archive_rows", "scatter_archive_rows")
 LOG: list = []
-CARVE_TOL = 1e-4  # fraction of window voxels the carve may disagree on
-# the phase-1 study's old kernel: a copy of the parent commit's
-# csrc/phase1.cu (a thread per (x, z) column), put here by the caller; git
-# ignores the directory, and without the copy the study has no old times
-PARENT_PHASE1 = os.path.join(ROOT, "scratch_checkout", "phase1.cu")
+# the studies' old kernels: a copy of the parent commit's package
+# (`git archive`), put here by the caller; git ignores the directory, and
+# without the copy the studies have no old times
+PARENT = os.path.join(ROOT, "scratch_checkout", "gie_mapping_tpu_torch")
 
 
 # The least time the card could take for a kernel's work (bound_ms): the
@@ -107,6 +107,7 @@ OPS_PER_MS = 67e9
 ENV_OPS_PER_SITE = 10
 P1_OPS_PER_VOXEL = 12
 CARVE_OPS_PER_VOXEL = 150
+PANORAMA_OPS_PER_POINT = 250
 
 
 def result(max_abs_err, t, plain_ms, *, bytes_, ops, library=None):
@@ -337,53 +338,53 @@ def tie_packed(N, L, yb, device):
     return w.to(device)
 
 
-def start_parent_phase1_build():
-    """Start nvcc on PARENT_PHASE1, beside the kernels' own build.  Returns
-    a function that waits for it and gives the old kernel's launcher
-    old(types, max_width, out) -> out, or None without the copy."""
-    from gie_mapping_tpu_torch.ops.kernels import _build
+def start_parent_build():
+    """Import the parent commit's package from PARENT under another name
+    and start building its kernels beside ours.  Returns a function that
+    waits for that build and gives the package (its `ops.kernels` modules
+    imported), or None without the copy."""
+    import importlib
+    import importlib.util
+    import threading
 
-    if not os.path.exists(PARENT_PHASE1):
+    init = os.path.join(PARENT, "__init__.py")
+    if not os.path.exists(init):
         return lambda: None
-    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    so = _build.BUILD_DIR / "libparent_phase1.so"
-    proc = subprocess.Popen(
-        [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-shared",
-         "-o", str(so), PARENT_PHASE1], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
+    name = "parent_gie_mapping_tpu_torch"
+    spec = importlib.util.spec_from_file_location(
+        name, init, submodule_search_locations=[PARENT])
+    pkg = importlib.util.module_from_spec(spec)
+    sys.modules[name] = pkg
+    spec.loader.exec_module(pkg)
+    build = importlib.import_module(name + ".ops.kernels._build")
+    for mod in ("carve", "envelope", "phase1"):
+        importlib.import_module(f"{name}.ops.kernels.{mod}")
+    importlib.import_module(name + ".ops.raycast")
+    err = []
+
+    def run():
+        try:
+            build.build()
+        except RuntimeError as exc:
+            err.append(str(exc))
+    th = threading.Thread(target=run)
+    th.start()
 
     def finish():
-        from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
-
-        out, _ = proc.communicate(timeout=600)
-        require(proc.returncode == 0, "build",
-                f"nvcc on {PARENT_PHASE1}: {out[-2000:]}")
-        fn = ctypes.CDLL(str(so)).gie_phase1_packed
-        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-
-        def phase1(t, max_width, out):
-            X, Y, Z = t.shape
-            _build.check("parent gie_phase1_packed", fn(
-                t.data_ptr(), out.data_ptr(), X, Y, Z, kp.phase1_pack_bits(Y),
-                max_width, _build.stream_of(t)))
-            return out
-        return phase1
+        th.join()
+        require(not err, "build", f"the parent's kernels: {err[:1]}")
+        build.library()
+        return pkg
     return finish
 
 
-def phase_kernels(dev, results, old_phase1):
-    import numpy as np
+def phase_kernels(dev, results, parent):
     import torch
 
     from gie_mapping_tpu_torch.ops import edt_batch as eb
-    from gie_mapping_tpu_torch.ops import raycast as rcm
-    from gie_mapping_tpu_torch.ops.kernels import carve as kc
     from gie_mapping_tpu_torch.ops.kernels import envelope as ke
     from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
     from gie_mapping_tpu_torch.models.pipeline import _slab_menu
-    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
-    from gie_mapping_tpu_torch.utils import geometry as geo
 
     ph = "kernels"
     X, Y, Z = 152, 152, 80
@@ -411,7 +412,7 @@ def phase_kernels(dev, results, old_phase1):
     require(p1_bad == 0, ph, f"phase1 differs from its plain version in {p1_bad} voxels")
     results["phase1"], p1_report = phase1_study(
         canvases[0], random_canvas((128, 128, 56), 0.02, 4, dev),
-        random_canvas((100, 100, 1), 0.01, 6, dev), old_phase1)
+        random_canvas((100, 100, 1), 0.01, 6, dev), parent)
 
     # ---- envelopes ------------------------------------------------------------
     env_bad = {"packed": 0, "mid": 0}
@@ -453,10 +454,10 @@ def phase_kernels(dev, results, old_phase1):
     w0 = cases[0][0]
     scan_canvas = random_canvas((128, 128, 56), 0.02, 4, dev)
     results["envelope_packed"], env_report = envelope_packed_study(
-        w0, yb, err["packed"], scan_canvas)
+        w0, yb, err["packed"], scan_canvas, parent)
     results["envelope_mid"], mid_report = envelope_mid_study(
-        mids[0], err["mid"], scan_canvas)
-    env5_bad = envelope_generic(dev, results)
+        mids[0], err["mid"], scan_canvas, parent)
+    env5_bad, env5_report = envelope_generic(dev, results, parent)
 
     # ---- batch_edt / batch_edt_slab (kernel chain vs plain chain on CPU) ------
     edt_bad = 0
@@ -481,47 +482,8 @@ def phase_kernels(dev, results, old_phase1):
                     x0:x0 + sx, y0:y0 + sy]).sum())
     require(edt_bad == 0, ph, f"batch_edt chain differs in {edt_bad} values")
 
-    # ---- carve ---------------------------------------------------------------
-    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
-    local = (100, 100, 30)
-    nt, npp = rcm.panorama_bins(local)
-    carve_bad, n_vox, carve_err = 0, 0, 0
-    carve_args = None
-    for seed, (pos, yaw) in enumerate((((0.0, 0.0, 1.2), 0.0),
-                                      ((0.37, -0.81, 1.13), 0.7),
-                                      ((-1.05, 0.55, 0.9), 2.1))):
-        proj = geo.Projection.from_pose(
-            np.asarray(pos, np.float32), (np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)))
-        pts = world.pointcloud(proj, n_rays=131072, max_range=8.0, seed=seed)
-        world_pts = proj.to(dev).l2g(torch.from_numpy(pts).to(dev))
-        valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
-        origin = np.asarray(pos, np.float32)
-        pvt = geo.calculate_pivot(origin, 0.1, local)
-        kw = dict(local_size=local, voxel_width=0.1, n_theta=nt, n_phi=npp,
-                  for_motion_planner=bool(seed % 2), robot_r2_grids=16)
-        ep = rcm.endpoint_counts(world_pts, valid, pvt, local_size=local,
-                                 voxel_width=0.1, ogm_min_h=0.0, ogm_max_h=2.5)
-        depth, cnt = rcm.panorama(world_pts, valid, origin, n_theta=nt,
-                                  n_phi=npp, local_size=local, voxel_width=0.1)
-        ki, kr = kc.carve(depth, cnt, ep, pvt, origin, **kw)
-        pi_, pr = kc.carve_plain(depth, cnt, ep, pvt, origin, **kw)
-        carve_bad += int(((ki != pi_) | (kr != pr)).sum())
-        carve_err = max(carve_err, int((kr - pr).abs().max()))
-        n_vox += ki.numel()
-        if carve_args is None:
-            carve_args = (depth, cnt, ep, pvt, origin, kw)
-    torch.cuda.synchronize()
-    emit({"phase": ph, "carve_mismatch_voxels": carve_bad,
-          "carve_window_voxels": n_vox})
-    require(carve_bad <= CARVE_TOL * n_vox, ph,
-            f"carve differs in {carve_bad} of {n_vox} voxels")
-    depth, cnt, ep, pvt, origin, kw = carve_args
-    results["carve"] = result(
-        carve_err, timing(lambda: kc.carve(depth, cnt, ep, pvt, origin, **kw),
-                          "carve_kernel"),
-        cuda_ms(lambda: kc.carve_plain(depth, cnt, ep, pvt, origin, **kw), 5),
-        bytes_=8 * depth.numel() + 9 * ep.numel(),
-        ops=CARVE_OPS_PER_VOXEL * ep.numel())
+    # ---- the point-cloud sensor model: panorama, then carve ---------------------
+    sensor_bad, sensor_report = sensor_model_kernels(dev, results, parent)
     scroll_bad, gather_report = scroll_kernels(dev, results)
     CLOCK.run()
     for entry in results.values():
@@ -529,15 +491,16 @@ def phase_kernels(dev, results, old_phase1):
     p1_report()
     env_report()
     mid_report()
+    env5_report()
+    sensor_report()
     gather_report()
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
-          "envelope_generic_bad": env5_bad,
+          "envelope_generic_bad": env5_bad, "sensor_model_bad": sensor_bad,
           "edt_bad": edt_bad, "scroll_kernels_bad": scroll_bad,
           "ms": {k: round(v["ms"], 4) for k, v in results.items()},
           "device_ms": {k: round(v["device_ms"], 5) for k, v in results.items()},
           "host_us": {k: round(v["host_us"], 2) for k, v in results.items()},
           "plain_ms": {k: round(v["plain_ms"], 4) for k, v in results.items()}})
-    return carve_bad
 
 
 def envelope_cases(mid=False):
@@ -581,13 +544,13 @@ def turn_times(j):
     return (t, None) if len(t) == 2 else ([t[0], t[3]], [t[1], t[2]])
 
 
-def phase1_study(world, scan_canvas, flat_canvas, old):
+def phase1_study(world, scan_canvas, flat_canvas, parent):
     """Phase 1 at the main paths' shapes: the slice's canvas [152, 152, 80],
     the gate's p1-cache patches [32|96, 152, 80] (into x-slab views of a
     cache), scan2d's canvas [128, 128, 56] and scan2d_flat's 2-D window
-    [100, 100, 1].  At each, the kernel against the parent's (`old`, built
-    from a copy of its source; None without one), bitwise, device times in
-    turns: new, old, old, new; and the z-tile width the wrapper chose.
+    [100, 100, 1].  At each, the kernel against the parent's (None without
+    its copy), bitwise, device times in turns: new, old, old, new; and the
+    z-tile width the wrapper chose.
     Returns the summary entry (at the canvas) and a function that prints
     the study once CLOCK has run."""
     import torch
@@ -601,6 +564,7 @@ def phase1_study(world, scan_canvas, flat_canvas, old):
               "128x128x56": (scan_canvas, None),
               "100x100x1": (flat_canvas, None)}
     wave = kp.phase1_wave(world.get_device())
+    old = None if parent is None else parent.ops.kernels.phase1.phase1_packed
     jobs, bad = [], 0
     for t, out in shapes.values():
         mw = sum(t.shape)
@@ -610,10 +574,10 @@ def phase1_study(world, scan_canvas, flat_canvas, old):
         run_old = None
         if old is not None:
             o_out = torch.empty_like(ref) if out is None else out
-            run_old = lambda t=t, o_out=o_out, mw=mw: old(t, mw, o_out)
+            run_old = lambda t=t, o_out=o_out, mw=mw: old(t, mw, out=o_out)
             run_old()
             bad += int((o_out != ref).sum())
-        jobs.append(turns(new, run_old, "phase1_bits_kernel", "phase1_packed_kernel"))
+        jobs.append(turns(new, run_old, "phase1_bits_kernel", "phase1_bits_kernel"))
     require(bad == 0, "kernels", f"phase1 study: {bad} voxels differ from the plain version")
     canvas = lambda: kp.phase1_packed(world, sum(world.shape))
     j = jobs[0]
@@ -624,7 +588,7 @@ def phase1_study(world, scan_canvas, flat_canvas, old):
         rows = {}
         for (label, (t_, _)), j in zip(shapes.items(), jobs):
             new_t, old_t = turn_times(j)
-            rows[label] = dict(device_ms=new_t, old_kernel_device_ms=old_t,
+            rows[label] = dict(device_ms=new_t, parent_device_ms=old_t,
                                tile_z=kp.phase1_tile(t_.shape[0], t_.shape[2], wave),
                                bound_ms=5 * t_.numel() / HBM_BYTES_PER_MS)
         emit({"phase": "kernels", "kernel": "phase1_packed", "shapes": rows})
@@ -632,14 +596,14 @@ def phase1_study(world, scan_canvas, flat_canvas, old):
     return result(0, t, plain_ms, bytes_=5 * n, ops=P1_OPS_PER_VOXEL * n), report
 
 
-def envelope_mid_study(chain, err, scan_canvas):
+def envelope_mid_study(chain, err, scan_canvas, parent):
     """Phase 3 at the main paths' three shapes: the slice's full
     [152, 80, 152] (the chain's input `chain` on the world canvas), the
     gate's slab after frame 0 [96, 80, 96] (that input's x- and y-slab, as
-    batch_edt_slab cuts it) and scan2d's [128, 56, 128].  At each, the O(N)
-    kernel against the old body (the brute-force generic kernel on a
-    [N, B * L] copy, made outside the timed calls), both bitwise against
-    the plain version, device times in turns: new, old, old, new.  Returns
+    batch_edt_slab cuts it) and scan2d's [128, 56, 128].  At each, the
+    kernel against the parent's (None without its copy), both bitwise
+    against the plain version, device times in turns: new, old, old, new.
+    Returns
     the summary entry (at the slice's shape) and a function that prints the
     study once CLOCK has run."""
     import torch
@@ -659,44 +623,40 @@ def envelope_mid_study(chain, err, scan_canvas):
         "128x56x128": (torch.where((ppay & 1) > 0, pk >> ib2, 1 << 28),
                        ((pk & ((1 << ib2) - 1)) << 11) | ppay),
     }
+    pke = None if parent is None else parent.ops.kernels.envelope
     jobs, bad = [], 0
     for f, pay in shapes.values():
-        B, N, L = f.shape
-        cols = lambda a: a.permute(1, 0, 2).reshape(N, B * L).contiguous()
-        fo, po = cols(f), cols(pay)
         new = lambda f=f, pay=pay: ke.envelope_mid(f, pay)
-        old = lambda fo=fo, po=po: ke.envelope(fo, po)
+        old = None if pke is None else (lambda f=f, pay=pay: pke.envelope_mid(f, pay))
         ref = ke.envelope_mid_plain(f, pay)
-        bad += sum(int((a != b).sum()) for a, b in zip(new(), ref))
-        bad += sum(int((cols(b) != a).sum()) for a, b in zip(old(), ref))
-        jobs.append(turns(new, old, "envelope_mid_fh_kernel", "envelope_kernel"))
+        for run in (new, old) if old else (new,):
+            bad += sum(int((a != b).sum()) for a, b in zip(run(), ref))
+        jobs.append(turns(new, old, "envelope_mid_fh_kernel", "envelope_mid_fh_kernel"))
     require(bad == 0, "kernels", f"envelope_mid study: {bad} words differ from the plain version")
     new = lambda: ke.envelope_mid(d0, p0)
     j = jobs[0]
-    t = dict(ms=cuda_ms(new, 20), device_ms=Job(j[0] + j[3]), host_us=host_us(new))
+    t = dict(ms=cuda_ms(new, 20), device_ms=Job(j[0] + j[-1]), host_us=host_us(new))
     plain_ms = cuda_ms(lambda: ke.envelope_mid_plain(d0, p0), 3, warm=1)
 
     def report():
         rows = {}
         for (label, (f, _)), j in zip(shapes.items(), jobs):
             new_t, old_t = turn_times(j)
-            rows[label] = dict(device_ms=new_t, old_body_device_ms=old_t,
+            rows[label] = dict(device_ms=new_t, parent_device_ms=old_t,
                                bound_ms=16 * f.numel() / HBM_BYTES_PER_MS)
         emit({"phase": "kernels", "kernel": "envelope_mid", "shapes": rows})
     n3 = d0.numel()
     return result(err, t, plain_ms, bytes_=16 * n3, ops=ENV_OPS_PER_SITE * n3), report
 
 
-def envelope_packed_study(w_slice, yb, err, scan_canvas):
+def envelope_packed_study(w_slice, yb, err, scan_canvas, parent):
     """Phase 2 at the main paths' three shapes: the slice's full
     [152, 80 * 152], the gate's slab after frame 0 [152, 80 * 96] and
-    scan2d's [128, 56 * 128].  At each, the O(N) kernel against the old
-    body (the brute-force generic kernel on the same unpacked input), both
-    bitwise against each other, device times in turns: new, old, old, new.
+    scan2d's [128, 56 * 128].  At each, the kernel against the parent's
+    (None without its copy), both bitwise against the plain version,
+    device times in turns: new, old, old, new.
     Returns the summary entry (at the slice's shape) and a function that
     prints the comparison once CLOCK has run."""
-    import torch
-
     from gie_mapping_tpu_torch.ops.kernels import envelope as ke
     from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
 
@@ -708,31 +668,30 @@ def envelope_packed_study(w_slice, yb, err, scan_canvas):
         "128x7168": (kp.phase1_packed_plain(scan_canvas, sum(s3))
                      .permute(0, 2, 1).contiguous(), kp.phase1_pack_bits(s3[1])),
     }
+    pke = None if parent is None else parent.ops.kernels.envelope
     jobs, bad = [], 0
     for w, ybw in shapes.values():
-        N = w.shape[0]
-        cap = (1 << (31 - ke.env_idx_bits(N))) - 1
-        f = torch.where((w & 1) > 0, w >> (ybw + 1), cap).reshape(N, -1)
-        pay = (w & ((1 << (ybw + 1)) - 1)).reshape(N, -1)
         new = lambda w=w, ybw=ybw: ke.envelope_packed(w, ybw)
-        old = lambda f=f, pay=pay: ke.envelope(f, pay)
-        bad += sum(int((a.reshape(N, -1) != b).sum()) for a, b in zip(new(), old()))
-        jobs.append([CLOCK.add(new, "envelope_packed_fh_kernel"),
-                     CLOCK.add(old, "envelope_kernel"),
-                     CLOCK.add(old, "envelope_kernel"),
-                     CLOCK.add(new, "envelope_packed_fh_kernel")])
-    require(bad == 0, "kernels", f"envelope_packed differs from the old body in {bad} words")
+        old = None if pke is None else (lambda w=w, ybw=ybw: pke.envelope_packed(w, ybw))
+        ref = ke.envelope_packed_plain(w, ybw)
+        for run in (new, old) if old else (new,):
+            bad += sum(int((a != b).sum()) for a, b in zip(run(), ref))
+        jobs.append(turns(new, old, "envelope_packed_fh_kernel",
+                          "envelope_packed_fh_kernel"))
+    require(bad == 0, "kernels", f"envelope_packed study: {bad} words differ "
+            "from the plain version")
     new = lambda: ke.envelope_packed(w_slice, yb)
-    t = dict(ms=cuda_ms(new, 20), device_ms=Job(jobs[0][0] + jobs[0][3]),
+    t = dict(ms=cuda_ms(new, 20), device_ms=Job(jobs[0][0] + jobs[0][-1]),
              host_us=host_us(new))
     plain_ms = cuda_ms(lambda: ke.envelope_packed_plain(w_slice, yb), 3, warm=1)
 
     def report():
-        emit({"phase": "kernels", "kernel": "envelope_packed", "shapes": {
-            label: dict(device_ms=[CLOCK.ms(j[0]), CLOCK.ms(j[3])],
-                        old_body_device_ms=[CLOCK.ms(j[1]), CLOCK.ms(j[2])],
-                        bound_ms=12 * w.numel() / HBM_BYTES_PER_MS)
-            for (label, (w, _)), j in zip(shapes.items(), jobs)}})
+        rows = {}
+        for (label, (w, _)), j in zip(shapes.items(), jobs):
+            new_t, old_t = turn_times(j)
+            rows[label] = dict(device_ms=new_t, parent_device_ms=old_t,
+                               bound_ms=12 * w.numel() / HBM_BYTES_PER_MS)
+        emit({"phase": "kernels", "kernel": "envelope_packed", "shapes": rows})
     n2 = w_slice.numel()
     return result(err, t, plain_ms, bytes_=12 * n2, ops=ENV_OPS_PER_SITE * n2), report
 
@@ -936,43 +895,234 @@ def cost_lanes(N, L, seed, device):
     return f.to(device), pay.to(device)
 
 
-def envelope_generic(dev, results):
+def envelope_generic(dev, results, parent):
     """Kernel 5 (the generic axis-0 envelope) against its plain version,
     bitwise, on every lane: N in {1, 2, 100, 128, 152}, lane counts that are
-    not multiples of 32, and the shapes [100, 100] (the 2-D window's phase
-    2), [128, 56 * 128] and [56, 128 * 128] (the sharded EDT's class).
-    Times it at each of the three shapes.  Returns the differing words."""
+    not multiples of 32, the edge cases of tests/test_torch_envelope_cases.py
+    as [N, B * L] lanes, and the shapes [100, 100] (the 2-D window's phase
+    2), [128, 56 * 128] and [56, 128 * 128] (the sharded EDT's class).  At
+    those three, device times in turns against the parent's kernel (None
+    without its copy).  Returns the differing words and a function that
+    prints the study once CLOCK has run."""
     import torch
 
     from gie_mapping_tpu_torch.ops.kernels import envelope as ke
 
     shapes = [(1, 45), (2, 45), (100, 77), (128, 1003), (152, 333),
               (100, 100), (128, 56 * 128), (56, 128 * 128)]
+    cases = [cost_lanes(N, L, 40 + i, dev) for i, (N, L) in enumerate(shapes)]
+    for f, pay in envelope_cases(mid=True):
+        B, N, L = f.shape
+        cols = lambda a: torch.from_numpy(a).permute(1, 0, 2).reshape(N, B * L)
+        cases.append((cols(f).contiguous().to(dev), cols(pay).contiguous().to(dev)))
     bad, err = 0, 0
-    inputs = {}
-    for i, (N, L) in enumerate(shapes):
-        f, pay = cost_lanes(N, L, 40 + i, dev)
+    for f, pay in cases:
         kk, kp_ = ke.envelope(f, pay)
         pk, pp = ke.envelope_plain(f, pay)
         bad += int(((kk != pk) | (kp_ != pp)).sum())
         err = max(err, int((kk.to(torch.int64) - pk).abs().max()))
-        inputs[(N, L)] = (f, pay)
+    pke = None if parent is None else parent.ops.kernels.envelope
+    jobs = []
+    for f, pay in cases[5:8]:
+        new = lambda f=f, pay=pay: ke.envelope(f, pay)
+        old = None if pke is None else (lambda f=f, pay=pay: pke.envelope(f, pay))
+        if old:
+            bad += sum(int((a != b).sum()) for a, b in zip(old(), ke.envelope_plain(f, pay)))
+        jobs.append(turns(new, old, "envelope_mid_fh_kernel", "envelope_kernel"))
     torch.cuda.synchronize()
     require(bad == 0, "kernels", f"envelope differs from its plain version in {bad} words")
-    extra = {}
-    for N, L in shapes[-2:]:
-        f, pay = inputs[(N, L)]
-        extra[f"{N}x{L}"] = dict(ms=round(cuda_ms(lambda: ke.envelope(f, pay), 20), 4),
-                                 plain_ms=round(cuda_ms(lambda: ke.envelope_plain(f, pay),
-                                                        3, warm=1), 4))
-    f, pay = inputs[(100, 100)]
+    f, pay = cases[5]
+    new = lambda: ke.envelope(f, pay)
+    j = jobs[0]
     results["envelope"] = result(
-        err, timing(lambda: ke.envelope(f, pay), "envelope_kernel"),
+        err, dict(ms=cuda_ms(new, 20), device_ms=Job(j[0] + j[-1]),
+                  host_us=host_us(new)),
         cuda_ms(lambda: ke.envelope_plain(f, pay), 10),
         bytes_=16 * f.numel(), ops=ENV_OPS_PER_SITE * f.numel())
-    emit({"phase": "kernels", "kernel": "envelope", "bad": bad,
-          "ms_100x100": round(results["envelope"]["ms"], 4), "other_shapes": extra})
-    return bad
+    extra = {f"{N}x{L}": dict(ms=cuda_ms(lambda f=f, pay=pay: ke.envelope(f, pay), 20),
+                              plain_ms=cuda_ms(lambda f=f, pay=pay: ke.envelope_plain(f, pay),
+                                               3, warm=1))
+             for (N, L), (f, pay) in zip(shapes[6:8], cases[6:8])}
+
+    def report():
+        rows = {}
+        for (N, L), (f, _), j in zip(shapes[5:8], cases[5:8], jobs):
+            new_t, old_t = turn_times(j)
+            rows[f"{N}x{L}"] = dict(device_ms=new_t, parent_device_ms=old_t,
+                                    bound_ms=16 * f.numel() / HBM_BYTES_PER_MS,
+                                    **extra.get(f"{N}x{L}", {}))
+        emit({"phase": "kernels", "kernel": "envelope", "bad": bad, "shapes": rows})
+    return bad, report
+
+
+def sensor_scene(dev, world, preset, pose, seed):
+    """One point-cloud frame of `preset` ("cow_lady": a 100x100x30 window of
+    0.1 m voxels, heights 0-2.5 m; "ugv_corridor": 200x200x24 of 0.05 m,
+    heights -10-10 m) at pose ((x, y, z), yaw): the world's 131072 points
+    on the card, every 37th invalid, and the keyword arguments of
+    panorama and carve."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.ops import raycast as rcm
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    local, vw, (lo, hi) = {"cow_lady": ((100, 100, 30), 0.1, (0.0, 2.5)),
+                           "ugv_corridor": ((200, 200, 24), 0.05, (-10.0, 10.0))}[preset]
+    pos, yaw = pose
+    proj = geo.Projection.from_pose(np.asarray(pos, np.float32),
+                                    (np.cos(yaw / 2), 0, 0, np.sin(yaw / 2)))
+    pts = world.pointcloud(proj, n_rays=131072, max_range=8.0, seed=seed)
+    world_pts = proj.to(dev).l2g(torch.from_numpy(pts).to(dev))
+    valid = torch.ones(len(pts), dtype=torch.bool, device=dev)
+    valid[::37] = False
+    origin = np.asarray(pos, np.float32)
+    pvt = geo.calculate_pivot(origin, vw, local)
+    nt, npp = rcm.panorama_bins(local)
+    pano = dict(local_size=local, voxel_width=vw, ogm_min_h=lo, ogm_max_h=hi,
+                n_theta=nt, n_phi=npp)
+    carve = dict(local_size=local, voxel_width=vw, n_theta=nt, n_phi=npp,
+                 for_motion_planner=bool(seed % 2), robot_r2_grids=16)
+    return world_pts, valid, origin, pvt, pano, carve
+
+
+def sensor_model_kernels(dev, results, parent):
+    """The panorama and the carve against their plain versions, bitwise on
+    every bin, count and voxel: the cow-lady window at the three poses of
+    the carve's CPU tests with 131072 points each, the ugv_corridor window
+    at one, and the cases of tests/test_torch_carve_cases.py.  Times both
+    kernels at the two windows, the carve against the parent's kernel and
+    the whole sensor model (pointcloud_project) against the parent's
+    (None without its copy).  Returns the differing values and a function
+    that prints the study once CLOCK has run."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops import raycast as rcm
+    from gie_mapping_tpu_torch.ops.kernels import carve as kc
+    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_carve_cases as cc
+
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
+    scenes = [sensor_scene(dev, world, "cow_lady", pose, seed) for seed, pose in
+              enumerate((((0.0, 0.0, 1.2), 0.0), ((0.37, -0.81, 1.13), 0.7),
+                         ((-1.05, 0.55, 0.9), 2.1)))]
+    scenes.append(sensor_scene(dev, world, "ugv_corridor", ((0.61, -0.33, 0.45), 1.3), 4))
+    for name in cc.POINTS:
+        c = cc.points(name)
+        scenes.append((torch.from_numpy(c["points"]).to(dev),
+                       torch.from_numpy(c["valid"]).to(dev), c["origin"], c["pvt"],
+                       dict(local_size=c["local_size"], voxel_width=c["voxel_width"],
+                            ogm_min_h=c["ogm_min_h"], ogm_max_h=c["ogm_max_h"],
+                            n_theta=c["n_theta"], n_phi=c["n_phi"]),
+                       dict(local_size=c["local_size"], voxel_width=c["voxel_width"],
+                            n_theta=c["n_theta"], n_phi=c["n_phi"],
+                            for_motion_planner=name.startswith("cloud"),
+                            robot_r2_grids=16)))
+    bad = {"panorama": 0, "carve": 0}
+    err = {"panorama": 0, "carve": 0}
+
+    def compare(name, got, want):
+        for a, b in zip(got, want):
+            if a.dtype == torch.float32:
+                a, b = a.view(torch.int32), b.view(torch.int32)
+            d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+            bad[name] += int((d != 0).sum())
+            err[name] = max(err[name], int(d.max()))
+
+    n_bins, n_vox = 0, 0
+    for pts, valid, origin, pvt, pkw, ckw in scenes:
+        tables = kc.panorama(pts, valid, origin, pvt, **pkw)
+        compare("panorama", tables, kc.panorama_plain(pts, valid, origin, pvt, **pkw))
+        compare("carve", kc.carve(*tables, pvt, origin, **ckw),
+                kc.carve_plain(*tables, pvt, origin, **ckw))
+        n_bins += tables[0].numel()
+        n_vox += tables[2].numel()
+    for name in cc.WINDOWS:  # random tables: every kind of bin
+        w = cc.window(name)
+        tables = [torch.from_numpy(a).to(dev) for a in cc.tables(name)]
+        ckw = dict(local_size=w["local_size"], voxel_width=w["voxel_width"],
+                   n_theta=w["n_theta"], n_phi=w["n_phi"],
+                   for_motion_planner=name.endswith("_off"), robot_r2_grids=16)
+        compare("carve", kc.carve(*tables, w["pvt"], w["origin"], **ckw),
+                kc.carve_plain(*tables, w["pvt"], w["origin"], **ckw))
+        n_vox += tables[2].numel()
+    torch.cuda.synchronize()
+    emit({"phase": "kernels", "sensor_model_mismatch": bad, "bins": n_bins,
+          "voxels": n_vox})
+    require(not any(bad.values()), "kernels",
+            f"the sensor model's kernels differ from their plain versions: {bad}")
+
+    pkc = None if parent is None else parent.ops.kernels.carve
+    prc = None if parent is None else parent.ops.raycast
+    jobs, rows = [], {}
+    for label, (pts, valid, origin, pvt, pkw, ckw) in (("cow_lady_100x100x30", scenes[0]),
+                                                       ("ugv_corridor_200x200x24", scenes[3])):
+        tables = kc.panorama(pts, valid, origin, pvt, **pkw)
+        pano = lambda a=(pts, valid, origin, pvt), k=pkw: kc.panorama(*a, **k)
+        new = lambda t=tables, a=(pvt, origin), k=ckw: kc.carve(*t, *a, **k)
+        old = None if pkc is None else (
+            lambda t=tables, a=(pvt, origin), k=ckw: pkc.carve(*t, *a, **k))
+        if old:
+            compare("carve", old(), new())
+        jobs.append((CLOCK.add(pano), turns(new, old, "carve_kernel", "carve_kernel")))
+        proj_kw = dict(pkw, for_motion_planner=ckw["for_motion_planner"],
+                       robot_r2_grids=16)
+        model = lambda a=(pts, valid, origin, pvt), k=proj_kw: rcm.pointcloud_project(*a, **k)
+        rows[label] = dict(
+            points=int(pts.shape[0]), voxels=int(tables[2].numel()),
+            panorama=dict(ms=cuda_ms(pano, 50), host_us=host_us(pano),
+                          plain_ms=cuda_ms(lambda a=(pts, valid, origin, pvt), k=pkw:
+                                           kc.panorama_plain(*a, **k), 10),
+                          bound_ms=panorama_bytes(pts, tables) / HBM_BYTES_PER_MS),
+            carve=dict(ms=cuda_ms(new, 50), host_us=host_us(new),
+                       plain_ms=cuda_ms(lambda t=tables, a=(pvt, origin), k=ckw:
+                                        kc.carve_plain(*t, *a, **k), 5),
+                       bound_ms=carve_bytes(tables) / HBM_BYTES_PER_MS),
+            pointcloud_project=dict(ms=cuda_ms(model, 50), host_us=host_us(model)))
+        if prc is not None:
+            old_model = lambda a=(pts, valid, origin, pvt), k=proj_kw: prc.pointcloud_project(*a, **k)
+            compare("carve", old_model(), model())
+            rows[label]["pointcloud_project"].update(
+                parent_ms=cuda_ms(old_model, 20), parent_host_us=host_us(old_model, 50))
+    require(not any(bad.values()), "kernels",
+            f"the sensor model differs from the parent's: {bad}")
+    pts, valid, origin, pvt, pkw, ckw = scenes[0]
+    tables = kc.panorama(pts, valid, origin, pvt, **pkw)
+    row = rows["cow_lady_100x100x30"]
+    jp, jc = jobs[0]
+    results["panorama"] = result(
+        err["panorama"], dict(ms=row["panorama"]["ms"], device_ms=jp,
+                              host_us=row["panorama"]["host_us"]),
+        row["panorama"]["plain_ms"], bytes_=panorama_bytes(pts, tables),
+        ops=PANORAMA_OPS_PER_POINT * pts.shape[0])
+    results["carve"] = result(
+        err["carve"], dict(ms=row["carve"]["ms"], device_ms=Job(jc[0] + jc[-1]),
+                           host_us=row["carve"]["host_us"]),
+        row["carve"]["plain_ms"], bytes_=carve_bytes(tables),
+        ops=CARVE_OPS_PER_VOXEL * tables[2].numel())
+
+    def report():
+        for (label, r), (jp, jc) in zip(rows.items(), jobs):
+            new_t, old_t = turn_times(jc)
+            r["panorama"]["device_ms"] = CLOCK.ms(jp)
+            r["carve"].update(device_ms=new_t, parent_device_ms=old_t)
+        emit({"phase": "kernels", "kernel": "sensor_model", "shapes": rows})
+    return sum(bad.values()), report
+
+
+def panorama_bytes(points, tables):
+    """What the panorama must move: 12 bytes of position and 1 of validity
+    a point read, its two tables and the endpoint counts written."""
+    return 13 * points.shape[0] + 4 * sum(t.numel() for t in tables)
+
+
+def carve_bytes(tables):
+    """What the carve must move: its tables and the endpoint counts read, a
+    ray count and a type a voxel written."""
+    depth, cnt, ep = tables
+    return 4 * (depth.numel() + cnt.numel()) + 9 * ep.numel()
 
 
 def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
@@ -1069,7 +1219,8 @@ def all_wrappers():
     from gie_mapping_tpu_torch.ops.kernels import shift as ks
 
     return {"phase1": kp.phase1_packed, "envelope_packed": ke.envelope_packed,
-            "envelope_mid": ke.envelope_mid, "carve": kc.carve,
+            "envelope_mid": ke.envelope_mid, "panorama": kc.panorama,
+            "carve": kc.carve,
             "envelope": ke.envelope, "shift_canvas": ks.shift_canvas,
             "gather_block_rows": kb.gather_block_rows,
             "scatter_block_rows": kb.scatter_block_rows,
@@ -1077,7 +1228,7 @@ def all_wrappers():
             "scatter_archive_rows": kb.scatter_archive_rows}
 
 
-def phase_slice(dev, carve_bad):
+def phase_slice(dev):
     import numpy as np
 
     from gie_mapping_tpu_torch.map_state import state_digest, state_to_numpy
@@ -1095,7 +1246,8 @@ def phase_slice(dev, carve_bad):
                                n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
               for i, p in enumerate(poses)]
     wrappers = {"phase1": kp.phase1_packed, "envelope_packed": ke.envelope_packed,
-                "envelope_mid": ke.envelope_mid, "carve": kc.carve}
+                "envelope_mid": ke.envelope_mid, "panorama": kc.panorama,
+                "carve": kc.carve}
     mapper, recs = run_slice(dev, frames, poses, wrappers.values())
     launches = {k: w.launches for k, w in wrappers.items()}
     for r in recs:
@@ -1110,7 +1262,6 @@ def phase_slice(dev, carve_bad):
     require(edt_bad == 0, ph, f"canvas dist_sq differs from scipy at {edt_bad} voxels")
 
     # agreement with the JAX package's results on the same slice
-    n_win = int(np.prod(mapper.cfg.local_size))
     origins_ok = all(r["origin"] == ref["origin"][i].tolist()
                      for i, r in enumerate(recs))
     tdiff = max(int(np.abs(np.asarray(r["type_counts"]) - ref["type_counts"][i]).max())
@@ -1124,10 +1275,10 @@ def phase_slice(dev, carve_bad):
           "state_sha_match": sha_ok,
           "ms_per_frame_mean_after_first": round(float(np.mean([r["ms"] for r in recs[1:]])), 4)})
     require(origins_ok, ph, "canvas origins differ from the JAX reference")
-    require(tdiff <= CARVE_TOL * n_win, ph,
-            f"voxel type counts differ from the JAX reference by {tdiff}")
-    if carve_bad == 0:
-        require(sha_ok, ph, "final state differs from the JAX reference")
+    require(tdiff == 0, ph, f"voxel type counts differ from the JAX reference by {tdiff}")
+    require(out_match == len(recs), ph,
+            f"only {out_match} of {len(recs)} frames match the JAX reference")
+    require(sha_ok, ph, "final state differs from the JAX reference")
     return launches, frames, poses
 
 
@@ -1509,18 +1660,17 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
     t0 = time.time()
     try:
-        finish_parent = start_parent_phase1_build()
+        finish_parent = start_parent_build()
         try:
             so, build_s = _build.build()
         finally:
-            old_phase1 = finish_parent()
+            parent = finish_parent()
         _build.library()
         emit({"phase": "build", "ok": True, "seconds": round(build_s, 3),
-              "library": os.path.relpath(so, ROOT),
-              "parent_phase1": old_phase1 is not None})
+              "library": os.path.relpath(so, ROOT), "parent": parent is not None})
         results: dict = {}
-        carve_bad = phase_kernels(dev, results, old_phase1)
-        launches, frames, poses = phase_slice(dev, carve_bad)
+        phase_kernels(dev, results, parent)
+        launches, frames, poses = phase_slice(dev)
         for path_launches in (phase_scroll(dev, all_wrappers()),
                               phase_scan(dev, all_wrappers(), flat=False),
                               phase_scan(dev, all_wrappers(), flat=True)):
@@ -1533,6 +1683,7 @@ def main(argv=None) -> int:
                                 "gie_mapping_tpu/ops/pallas/envelope.py:739"),
             "envelope_mid": ("csrc/envelope.cu",
                              "gie_mapping_tpu/ops/pallas/envelope.py:719"),
+            "panorama": ("csrc/carve.cu", "gie_mapping_tpu/ops/raycast.py:96-110"),
             "carve": ("csrc/carve.cu", "gie_mapping_tpu/ops/pallas/carve.py:89"),
             "envelope": ("csrc/envelope.cu",
                          "gie_mapping_tpu/ops/pallas/envelope.py:759"),

@@ -21,42 +21,37 @@ namespace gie {
 // roughly a fifth of all inputs, which moves voxels across panorama bin
 // edges.  This is that algorithm with every operation an explicitly rounded
 // intrinsic, so no contraction or reassociation can change a bit.
+//
+// atanf_exact has no branch: the lanes of a warp fall into different
+// argument ranges, and the library's four-way branch with a division on
+// each arm would serialise them.  Every arm's numerator and denominator
+// are formed, the range's pair is selected, and one division follows; the
+// smallest range divides x by 1, which is exact.  The range's atan(hi) and
+// atan(lo) are selected too, not read from an array with a run-time index
+// (which would go to local memory).
 // ---------------------------------------------------------------------------
 __device__ __forceinline__ float bits_f(uint32_t u) { return __uint_as_float(u); }
 
 __device__ __forceinline__ float atanf_exact(float x) {
   const int32_t hx = __float_as_int(x);
   const int32_t ix = hx & 0x7fffffff;
-  const float atanhi3 = bits_f(0x3fc90fdau), atanlo3 = bits_f(0x33a22168u);
-  if (ix >= 0x4c000000) {  // |x| >= 2^25 (or NaN)
-    if (ix > 0x7f800000) return __fadd_rn(x, x);
-    return hx > 0 ? __fadd_rn(atanhi3, atanlo3) : __fsub_rn(-atanhi3, atanlo3);
-  }
-  int id;
-  if (ix < 0x3ee00000) {  // |x| < 0.4375
-    if (ix < 0x31000000) return x;  // |x| < 2^-29
-    id = -1;
-  } else {
-    x = fabsf(x);
-    if (ix < 0x3f980000) {
-      if (ix < 0x3f300000) {  // 7/16 <= |x| < 11/16
-        id = 0;
-        x = __fdiv_rn(__fsub_rn(__fadd_rn(x, x), 1.0f), __fadd_rn(x, 2.0f));
-      } else {  // 11/16 <= |x| < 19/16
-        id = 1;
-        x = __fdiv_rn(__fsub_rn(x, 1.0f), __fadd_rn(x, 1.0f));
-      }
-    } else {
-      if (ix < 0x401c0000) {  // |x| < 2.4375
-        id = 2;
-        x = __fdiv_rn(__fsub_rn(x, 1.5f), __fadd_rn(__fmul_rn(x, 1.5f), 1.0f));
-      } else {
-        id = 3;
-        x = __fdiv_rn(-1.0f, x);
-      }
-    }
-  }
-  const float z = __fmul_rn(x, x);
+  const float ax = fabsf(x);
+  // ranges of |x|: < 7/16 (id -1), < 11/16 (0), < 19/16 (1), < 39/16 (2),
+  // else (3)
+  const bool r_m1 = ix < 0x3ee00000, r0 = ix < 0x3f300000;
+  const bool r1 = ix < 0x3f980000, r2 = ix < 0x401c0000;
+  const float num = r_m1 ? x
+                  : r0   ? __fsub_rn(__fadd_rn(ax, ax), 1.0f)
+                  : r1   ? __fsub_rn(ax, 1.0f)
+                  : r2   ? __fsub_rn(ax, 1.5f)
+                         : -1.0f;
+  const float den = r_m1 ? 1.0f
+                  : r0   ? __fadd_rn(ax, 2.0f)
+                  : r1   ? __fadd_rn(ax, 1.0f)
+                  : r2   ? __fadd_rn(__fmul_rn(ax, 1.5f), 1.0f)
+                         : ax;
+  const float xr = __fdiv_rn(num, den);
+  const float z = __fmul_rn(xr, xr);
   const float w = __fmul_rn(z, z);
   float s1 = __fmul_rn(bits_f(0x3c8569d7u), w);
   s1 = __fmul_rn(__fadd_rn(s1, bits_f(0x3d4bda59u)), w);
@@ -69,12 +64,19 @@ __device__ __forceinline__ float atanf_exact(float x) {
   s2 = __fmul_rn(__fsub_rn(s2, bits_f(0x3d9d8795u)), w);
   s2 = __fmul_rn(__fsub_rn(s2, bits_f(0x3de38e38u)), w);
   s2 = __fmul_rn(__fsub_rn(s2, bits_f(0x3e4ccccdu)), w);
-  const float xs = __fmul_rn(__fadd_rn(s1, s2), x);
-  if (id < 0) return __fsub_rn(x, xs);
-  const uint32_t hi[4] = {0x3eed6338u, 0x3f490fdau, 0x3f7b985eu, 0x3fc90fdau};
-  const uint32_t lo[4] = {0x31ac3769u, 0x33222168u, 0x33140fb4u, 0x33a22168u};
-  const float r = __fsub_rn(bits_f(hi[id]), __fsub_rn(__fsub_rn(xs, bits_f(lo[id])), x));
-  return hx < 0 ? -r : r;
+  const float xs = __fmul_rn(__fadd_rn(s1, s2), xr);
+  const float hi = bits_f(r0 ? 0x3eed6338u : r1 ? 0x3f490fdau
+                          : r2 ? 0x3f7b985eu : 0x3fc90fdau);
+  const float lo = bits_f(r0 ? 0x31ac3769u : r1 ? 0x33222168u
+                          : r2 ? 0x33140fb4u : 0x33a22168u);
+  const float r = __fsub_rn(hi, __fsub_rn(__fsub_rn(xs, lo), xr));
+  const float atanhi3 = bits_f(0x3fc90fdau), atanlo3 = bits_f(0x33a22168u);
+  const float huge =  // |x| >= 2^25: +-pi/2; NaN: itself
+      ix > 0x7f800000 ? __fadd_rn(x, x)
+      : hx > 0 ? __fadd_rn(atanhi3, atanlo3) : __fsub_rn(-atanhi3, atanlo3);
+  return ix >= 0x4c000000 ? huge
+         : ix < 0x31000000 ? x  // |x| < 2^-29
+         : r_m1 ? __fsub_rn(xr, xs) : (hx < 0 ? -r : r);
 }
 
 __device__ __forceinline__ float atan2f_exact(float y, float x) {

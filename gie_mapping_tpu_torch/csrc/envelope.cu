@@ -10,7 +10,8 @@
 //     between the phases;
 //   envelope_pallas (_envelope_2d + _envelope_kernel): the generic axis-0
 //     envelope of [N, L] site costs with one separate payload (phase 2 of
-//     the 2-D, Z == 1 EDT).
+//     the 2-D, Z == 1 EDT), which is phase 3's [B, N, L] with B = 1: the
+//     wrapper (ops/kernels/envelope.py::envelope) launches gie_envelope_mid.
 //
 // All three compute, per output row x and lane l,
 //   key[x, l] = min_i ( min((x - i)^2 + min(f[i, l], cap), cap) << idx_bits | i )
@@ -20,12 +21,10 @@
 // belongs to the same winner.  For the packed phase-1 input,
 // f = valid ? word >> (yb + 1) : cap and payload = word & ((1 << (yb + 1)) - 1).
 //
-// Two designs, one function.
-//
-// envelope_packed (phase 2) and envelope_mid (phase 3), one launch each per
-// frame on every canvas-engine path, share one body (envelope_fh, templated
-// on the input form): Felzenszwalb and Huttenlocher's O(N) lower envelope
-// with exact integer boundaries.  With g_i = f_i + i^2 over the sites S
+// envelope_packed (phase 2) and envelope_mid (phase 3, and the generic
+// envelope), one launch each per frame on every canvas-engine path, share
+// one body (envelope_fh, templated on the input form): Felzenszwalb and
+// Huttenlocher's O(N) lower envelope with exact integer boundaries.  With g_i = f_i + i^2 over the sites S
 // whose f_i < cap, site v < q wins at x (ties included) exactly when
 // x <= b(v, q) = floor((g_q - g_v) / (2 (q - v))).  Pass 1 walks sites in
 // increasing order over a stack of (site, start): it pops the top while
@@ -69,10 +68,13 @@
 // gated slab's [96, 80, 96] and scan2d's [128, 56, 128], the shapes most
 // frames run.
 //
-// envelope (the generic one, B = 1) keeps the first design: one thread per
-// output (x, lane) looping over every site, O(N^2) per lane, neighbouring
-// threads on neighbouring lanes.  Its call on a 100 x 100 2-D window is
-// 1 M steps in 100 x 1 CTAs: it is bound by launch latency, not by the card.
+// The generic envelope keeps phase 3's instantiation.  Its grids are
+// small (a 100 x 100 2-D window is 4 CTAs), so its time is one CTA's, about
+// 12 us on an H100 80GB HBM3 at 700 W, against 3.6 us for the brute-force
+// body it replaced (a thread per output looping over every site); at the
+// sharded EDT's [128, 56 * 128] and [56, 128 * 128] it takes a third and
+// two thirds of that body's time.  Cutting pass 2's rows over 8, 16 or 32
+// warps instead of 4 did not shorten a CTA (PERF.md).
 #include "common.cuh"
 
 namespace {
@@ -269,28 +271,6 @@ cudaError_t allow_smem(Kernel kernel, bool (&raised)[64], int bytes) {
   return cudaSuccess;
 }
 
-__global__ void envelope_kernel(const int32_t* __restrict__ f,
-                                const int32_t* __restrict__ pay,
-                                int32_t* __restrict__ key_out,
-                                int32_t* __restrict__ pay_out, int N,
-                                int64_t L, int idx_bits) {
-  const int64_t lane = int64_t(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (lane >= L) return;
-  const int x = blockIdx.y;
-  const int32_t cap = (1 << (31 - idx_bits)) - 1;
-
-  int32_t best = 0x7fffffff;
-  for (int i = 0; i < N; ++i) {
-    const int32_t dx = x - i;
-    const int32_t cand = min(dx * dx + min(f[lane + int64_t(i) * L], cap), cap);
-    best = min(best, (cand << idx_bits) | i);
-  }
-  const int site = best & ((1 << idx_bits) - 1);
-  const int64_t out = lane + int64_t(x) * L;
-  key_out[out] = best;
-  pay_out[out] = pay[lane + int64_t(site) * L];
-}
-
 }  // namespace
 
 // Phase 2: packed int32 [N, L] (sites on axis 0) -> key, payload [N, L];
@@ -311,19 +291,6 @@ GIE_EXPORT int gie_envelope_packed(const void* packed, void* key_out,
                               (cudaStream_t)stream>>>(
       (const int32_t*)packed, (int32_t*)key_out, (int32_t*)pay_out, N, L,
       int(tiles), idx_bits, yb);
-  return (int)cudaGetLastError();
-}
-
-// Generic: f, payload int32 [N, L] (sites on axis 0) -> key, payload.
-GIE_EXPORT int gie_envelope(const void* f, const void* pay, void* key_out,
-                            void* pay_out, int N, int64_t L, int idx_bits,
-                            void* stream) {
-  if (N <= 0 || L == 0) return 0;
-  const int threads = 128;
-  const dim3 grid(unsigned((L + threads - 1) / threads), unsigned(N));
-  envelope_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)f, (const int32_t*)pay, (int32_t*)key_out,
-      (int32_t*)pay_out, N, L, idx_bits);
   return (int)cudaGetLastError();
 }
 

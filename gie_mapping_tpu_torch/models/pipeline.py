@@ -80,8 +80,8 @@ def kernel_limits(cfg) -> list:
     they take it all).  The canvas engine's EDT runs on the canvas, the
     relax engine's on the window.  Phase 1 needs Y <= 1024; on a 3-D grid
     the phase-2 envelope takes X <= ENVELOPE_PACKED_MAX_N sites and the
-    phase-3 one Z <= ENVELOPE_MID_MAX_N (a Z == 1 grid runs the generic
-    envelope, which has no limit)."""
+    phase-3 one Z <= ENVELOPE_MID_MAX_N; a Z == 1 grid runs phase 2 through
+    the generic envelope, which takes X <= ENVELOPE_MID_MAX_N."""
     grid = cfg.canvas_size if cfg.merge_mode == "canvas_edt" else cfg.local_size
     X, Y, Z = grid
     what = "canvas" if cfg.merge_mode == "canvas_edt" else "window"
@@ -90,6 +90,8 @@ def kernel_limits(cfg) -> list:
         bad.append(f"{what} Y = {Y} > 1024 (phase 1)")
     if Z > 1 and X > ENVELOPE_PACKED_MAX_N:
         bad.append(f"{what} X = {X} > {ENVELOPE_PACKED_MAX_N} (phase 2)")
+    if Z == 1 and X > ENVELOPE_MID_MAX_N:
+        bad.append(f"{what} X = {X} > {ENVELOPE_MID_MAX_N} (phase 2, Z == 1)")
     if Z > ENVELOPE_MID_MAX_N:
         bad.append(f"{what} Z = {Z} > {ENVELOPE_MID_MAX_N} (phase 3)")
     return bad

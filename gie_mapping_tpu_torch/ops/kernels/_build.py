@@ -34,15 +34,14 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
-_F = ctypes.c_float
+_B = ctypes.c_char_p  # a packed argument buffer (bytes)
 SIGNATURES = {
     "gie_phase1_packed": (_P, _P, _I, _I, _I, _I, _I, _I, _P),
     "gie_phase1_ctas_per_sm": (),
     "gie_envelope_packed": (_P, _P, _P, _I, _L, _I, _I, _P),
     "gie_envelope_mid": (_P, _P, _P, _P, _I, _I, _L, _I, _P),
-    "gie_envelope": (_P, _P, _P, _P, _I, _L, _I, _P),
-    "gie_carve": (_P, _P, _P, _P, _P) + (_I,) * 6 + (_F,) * 4 + (_I, _I)
-                 + (_F,) * 6 + (_I, _I, _P),
+    "gie_panorama": (_B, _I),
+    "gie_carve": (_B, _I),
     "gie_shift_canvas": (_P, _P, _P) + (_I,) * 9 + (_P,),
     "gie_gather_block_rows": (_P, _P, _P) + (_I,) * 5 + (_P,),
     "gie_scatter_block_rows": (_P, _P, _P, _P) + (_I,) * 5 + (_P,),

@@ -1,9 +1,15 @@
-"""Projective free-space carve (per-voxel panorama lookup + sensor model):
-kernel wrapper + plain version.
+"""The projective point-cloud sensor model's two kernels: kernel wrappers
++ plain versions.
 
-Counterpart of gie_mapping_tpu/ops/pallas/carve.py::panorama_select together
-with the per-voxel tail of gie_mapping_tpu/ops/raycast.py::pointcloud_project
-(lines 113-154), which the CUDA kernel csrc/carve.cu fuses.
+  panorama - per point: the (theta, phi) bin's min range and ray count, and
+             the registered endpoint hits per window voxel
+             (gie_mapping_tpu/ops/raycast.py::pointcloud_project, lines
+             83-110: XLA's scatters; no Pallas kernel);
+  carve    - per window voxel: its bin's min range and ray count, and the
+             sensor model's ray count and type
+             (gie_mapping_tpu/ops/pallas/carve.py::panorama_select with the
+             per-voxel tail of pointcloud_project, lines 113-154).
+The CUDA kernels are csrc/carve.cu.
 
 The panorama bins come from float trigonometry, so the plain version
 reproduces the JAX CPU reference's rounding exactly and on every device:
@@ -15,17 +21,28 @@ PyTorch's own atan2 rounds differently on both CPU and GPU).
 """
 from __future__ import annotations
 
+import functools
 import math
+import struct
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
 from ...utils.constants import VOX_FREE, VOX_OCCUPIED, VOX_UNKNOWN
 from ...utils.floats import fma_f32, sqrt_f32
-from ...utils.geometry import local_coord_grid
+from ...utils import geometry as geo
 from . import _build
 
 BIG_DEPTH = 1e30  # "no ray in this bin" sentinel of the depth panorama
+# the launch arguments of gie_panorama and gie_carve, packed into one buffer
+# (csrc/carve.cu's PanoramaCall and CarveCall): the pointers and the
+# stream, the frame's pivot and origin (per call), then the config's values
+# (cached)
+_PANORAMA_CALL = struct.Struct("<6Q4i3f")
+_PANORAMA_CONFIG = struct.Struct("<3i4f2i4f")
+_CARVE_CALL = struct.Struct("<6Q3i3f")
+_CARVE_CONFIG = struct.Struct("<3i3f4i4f")
 
 
 def _f(bits: int) -> float:
@@ -112,13 +129,133 @@ def bin_index(a: torch.Tensor, shift: float, scale: float, n: int):
     return torch.clamp((a + shift) * scale, 0, n - 1).to(torch.int32)
 
 
-def carve_consts(n_theta, n_phi, local_size, voxel_width):
+class CarveConsts(NamedTuple):
     """The float32 constants of the bin and freed tests (Python floats)."""
+    pi: float
+    theta_scale: float
+    half_pi: float
+    phi_scale: float
+    max_length: float
+    big: float
+
+
+def carve_consts(n_theta, n_phi, local_size, voxel_width) -> CarveConsts:
+    return _carve_consts(int(n_theta), int(n_phi), int(local_size[0]),
+                         float(voxel_width))
+
+
+@functools.lru_cache(maxsize=64)
+def _carve_consts(n_theta, n_phi, X, voxel_width):
     f32 = lambda v: float(np.float32(v))
-    return dict(pi=f32(math.pi), theta_scale=f32(n_theta / (2 * math.pi)),
-                half_pi=f32(math.pi / 2), phi_scale=f32(n_phi / math.pi),
-                max_length=f32(0.707 * local_size[0] * voxel_width),
-                big=f32(BIG_DEPTH))
+    return CarveConsts(pi=f32(math.pi), theta_scale=f32(n_theta / (2 * math.pi)),
+                       half_pi=f32(math.pi / 2), phi_scale=f32(n_phi / math.pi),
+                       max_length=f32(0.707 * X * voxel_width),
+                       big=f32(BIG_DEPTH))
+
+
+def panorama_plain(points, valid, origin, pvt, *, local_size, voxel_width,
+                   ogm_min_h, ogm_max_h, n_theta, n_phi):
+    """Plain version of `panorama` (same arguments and results)."""
+    X, Y, Z = local_size
+    dev = points.device
+    k = carve_consts(n_theta, n_phi, local_size, voxel_width)
+    # the min-depth panorama
+    rel = points - torch.as_tensor(np.asarray(origin, np.float32), device=dev)
+    r = norm3_f32(rel)
+    theta = atan2f_exact(rel[:, 1], rel[:, 0])
+    phi = atan2f_exact(rel[:, 2], hypot2_f32(rel[:, 0], rel[:, 1]))
+    bt = bin_index(theta, k.pi, k.theta_scale, n_theta)
+    bp = bin_index(phi, k.half_pi, k.phi_scale, n_phi)
+    bin_id = torch.where(valid, bt * n_phi + bp, 0).long()
+    depth = torch.full((n_theta * n_phi,), k.big, dtype=torch.float32, device=dev)
+    depth.scatter_reduce_(0, bin_id, torch.where(valid, r, k.big), reduce="amin")
+    cnt = torch.zeros(n_theta * n_phi, dtype=torch.int32, device=dev)
+    cnt.index_add_(0, bin_id, valid.to(torch.int32))
+    # the registered endpoints
+    loc = geo.pos2coord(points, voxel_width) - torch.as_tensor(
+        np.asarray(pvt, np.int32), device=dev)
+    hgt_ok = (points[:, 2] >= ogm_min_h) & (points[:, 2] <= ogm_max_h)
+    reg = valid & hgt_ok & geo.inside_volume(loc, local_size)
+    flat = loc[:, 0] * (Y * Z) + loc[:, 1] * Z + loc[:, 2]
+    flat = torch.where(reg, flat, 0).long()
+    ep = torch.zeros(X * Y * Z, dtype=torch.int32, device=dev)
+    ep.index_add_(0, flat, reg.to(torch.int32))
+    return (depth.reshape(n_theta, n_phi), cnt.reshape(n_theta, n_phi),
+            ep.reshape(X, Y, Z))
+
+
+def panorama(points, valid, origin, pvt, *, local_size, voxel_width,
+             ogm_min_h, ogm_max_h, n_theta, n_phi):
+    """Per (theta, phi) bin of the valid points: their min range from the
+    sensor origin and their count; per window voxel: the valid points that
+    register there (inside the height band [ogm_min_h, ogm_max_h]).
+
+    points float32 [N, 3] world frame; valid bool [N]; origin (3,) float32
+    sensor origin and pvt (3,) ints window pivot (host values).  Returns
+    (depth f32 [n_theta, n_phi], cnt int32 [n_theta, n_phi], endpoint_cnt
+    int32 [X, Y, Z]); a bin without a point holds BIG_DEPTH.
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    X, Y, Z = (int(s) for s in local_size)
+    n = points.shape[0]
+    if points.dtype != torch.float32 or tuple(points.shape) != (n, 3) \
+            or valid.dtype != torch.bool or tuple(valid.shape) != (n,):
+        raise TypeError("panorama wants points float32 [N, 3] and valid bool [N]")
+    dev = points.device
+    if valid.device != dev:
+        raise ValueError("panorama: points and valid on different devices")
+    if dev.type == "cpu":
+        return panorama_plain(points, valid, origin, pvt, local_size=(X, Y, Z),
+                              voxel_width=voxel_width, ogm_min_h=ogm_min_h,
+                              ogm_max_h=ogm_max_h, n_theta=n_theta, n_phi=n_phi)
+    if dev.type != "cuda":
+        raise ValueError(f"panorama: unsupported device {dev}")
+    if 3 * n >= 1 << 31 or X * Y * Z >= 1 << 31:
+        raise ValueError("panorama: the kernel indexes points and voxels in int32")
+    pts, val = points.contiguous(), valid.contiguous()
+    depth = torch.empty((n_theta, n_phi), dtype=torch.float32, device=dev)
+    cnt = torch.empty((n_theta, n_phi), dtype=torch.int32, device=dev)
+    ep = torch.empty((X, Y, Z), dtype=torch.int32, device=dev)
+    args = _PANORAMA_CALL.pack(
+        pts.data_ptr(), val.data_ptr(), depth.data_ptr(), cnt.data_ptr(),
+        ep.data_ptr(), _build.stream_of(pts), n, *_host_ints(pvt),
+        *_host_floats(origin)) + _panorama_config(
+            X, Y, Z, n_theta, n_phi, float(voxel_width), float(ogm_min_h),
+            float(ogm_max_h))
+    rc = _build.fn("gie_panorama")(args, len(args))
+    panorama.launches += 1
+    _build.check("gie_panorama", rc)
+    return depth, cnt, ep
+
+
+@functools.lru_cache(maxsize=64)
+def _panorama_config(X, Y, Z, n_theta, n_phi, voxel_width, ogm_min_h,
+                     ogm_max_h) -> bytes:
+    k = carve_consts(n_theta, n_phi, (X, Y, Z), voxel_width)
+    return _PANORAMA_CONFIG.pack(X, Y, Z, voxel_width, ogm_min_h, ogm_max_h,
+                                 k.big, n_theta, n_phi, k.pi, k.theta_scale,
+                                 k.half_pi, k.phi_scale)
+
+
+@functools.lru_cache(maxsize=64)
+def _carve_config(X, Y, Z, voxel_width, for_motion_planner, robot_r2_grids,
+                  n_theta, n_phi) -> bytes:
+    k = carve_consts(n_theta, n_phi, (X, Y, Z), voxel_width)
+    return _CARVE_CONFIG.pack(X, Y, Z, voxel_width, k.max_length, k.big,
+                              int(for_motion_planner), int(robot_r2_grids),
+                              n_theta, n_phi, k.pi, k.theta_scale, k.half_pi,
+                              k.phi_scale)
+
+
+def _host_ints(v):
+    """The three Python ints of a host vector (numpy array or sequence)."""
+    a, b, c = np.asarray(v).tolist()
+    return int(a), int(b), int(c)
+
+
+def _host_floats(v):
+    """The three Python floats of a host vector, each rounded to float32."""
+    return np.asarray(v, np.float32).tolist()
 
 
 def voxel_bins(pvt, origin, *, local_size, voxel_width, n_theta, n_phi,
@@ -126,7 +263,7 @@ def voxel_bins(pvt, origin, *, local_size, voxel_width, n_theta, n_phi,
     """Per window voxel: range from the sensor origin and (theta, phi)
     panorama bin.  Returns (vr f32, vbt int32, vbp int32) [X, Y, Z]."""
     k = carve_consts(n_theta, n_phi, local_size, voxel_width)
-    c = (local_coord_grid(local_size, device)
+    c = (geo.local_coord_grid(local_size, device)
          + torch.as_tensor(np.asarray(pvt, np.int32), device=device)).float()
     o = torch.as_tensor(np.asarray(origin, np.float32), device=device)
     vw = torch.tensor(float(np.float32(voxel_width)), device=device)
@@ -135,8 +272,8 @@ def voxel_bins(pvt, origin, *, local_size, voxel_width, n_theta, n_phi,
     vtheta = atan2f_exact(vrel[..., 1], vrel[..., 0])
     vrho = hypot2_f32(vrel[..., 0], vrel[..., 1])
     vphi = atan2f_exact(vrel[..., 2], vrho)
-    return (vr, bin_index(vtheta, k["pi"], k["theta_scale"], n_theta),
-            bin_index(vphi, k["half_pi"], k["phi_scale"], n_phi))
+    return (vr, bin_index(vtheta, k.pi, k.theta_scale, n_theta),
+            bin_index(vphi, k.half_pi, k.phi_scale, n_phi))
 
 
 def carve_plain(depth, cnt, endpoint_cnt, pvt, origin, *, local_size,
@@ -151,14 +288,14 @@ def carve_plain(depth, cnt, endpoint_cnt, pvt, origin, *, local_size,
     vbin = (vbt * n_phi + vbp).long()
     vdepth = depth.reshape(-1)[vbin]
     vcnt = cnt.reshape(-1)[vbin]
-    freed = ((vdepth < k["big"]) & (vr + voxel_width < vdepth)
-             & (vr <= k["max_length"]))
+    freed = ((vdepth < k.big) & (vr + voxel_width < vdepth)
+             & (vr <= k.max_length))
     ray_count = torch.where(endpoint_cnt > 0, endpoint_cnt, torch.where(
         freed, -torch.clamp(vcnt, max=10), 0)).to(torch.int32)
     if for_motion_planner:
         half = torch.tensor([s // 2 for s in local_size], dtype=torch.int32,
                             device=dev)
-        d = local_coord_grid(local_size, dev) - half
+        d = geo.local_coord_grid(local_size, dev) - half
         sphere = (d * d).sum(-1) <= robot_r2_grids
         ray_count = torch.where(sphere, -1, ray_count).to(torch.int32)
     inst_type = torch.where(ray_count > 0, VOX_OCCUPIED, torch.where(
@@ -177,42 +314,41 @@ def carve(depth, cnt, endpoint_cnt, pvt, origin, *, local_size, voxel_width,
     ray_count int32) [X, Y, Z].
 
     CPU tensors take the plain version; CUDA tensors launch the kernel."""
-    kw = dict(local_size=tuple(local_size), voxel_width=voxel_width,
-              n_theta=n_theta, n_phi=n_phi,
-              for_motion_planner=for_motion_planner,
-              robot_r2_grids=robot_r2_grids)
+    X, Y, Z = (int(s) for s in local_size)
     if depth.dtype != torch.float32 or cnt.dtype != torch.int32 \
             or endpoint_cnt.dtype != torch.int32:
         raise TypeError("carve wants depth f32, cnt and endpoint_cnt int32")
     if depth.numel() != n_theta * n_phi or cnt.numel() != n_theta * n_phi:
         raise ValueError("panorama size does not match (n_theta, n_phi)")
-    if tuple(endpoint_cnt.shape) != tuple(local_size):
+    if tuple(endpoint_cnt.shape) != (X, Y, Z):
         raise ValueError("endpoint_cnt must be shaped like the window")
     dev = depth.device
     if cnt.device != dev or endpoint_cnt.device != dev:
         raise ValueError("carve: depth, cnt and endpoint_cnt on different devices")
     if dev.type == "cpu":
-        return carve_plain(depth, cnt, endpoint_cnt, pvt, origin, **kw)
+        return carve_plain(depth, cnt, endpoint_cnt, pvt, origin,
+                           local_size=(X, Y, Z), voxel_width=voxel_width,
+                           n_theta=n_theta, n_phi=n_phi,
+                           for_motion_planner=for_motion_planner,
+                           robot_r2_grids=robot_r2_grids)
     if dev.type != "cuda":
         raise ValueError(f"carve: unsupported device {dev}")
-    X, Y, Z = (int(s) for s in local_size)
-    d = depth.contiguous()
-    c = cnt.contiguous()
-    e = endpoint_cnt.contiguous()
+    if X * Y * Z >= 1 << 31:
+        raise ValueError("carve: the kernel indexes voxels in int32")
+    d, c, e = depth.contiguous(), cnt.contiguous(), endpoint_cnt.contiguous()
     inst = torch.empty((X, Y, Z), dtype=torch.int8, device=dev)
     rc_out = torch.empty((X, Y, Z), dtype=torch.int32, device=dev)
-    k = carve_consts(n_theta, n_phi, local_size, voxel_width)
-    p = [int(v) for v in np.asarray(pvt).reshape(3)]
-    o = [float(v) for v in np.asarray(origin, np.float32).reshape(3)]
-    rc = _build.fn("gie_carve")(
+    args = _CARVE_CALL.pack(
         d.data_ptr(), c.data_ptr(), e.data_ptr(), inst.data_ptr(),
-        rc_out.data_ptr(), X, Y, Z, *p, *o, float(np.float32(voxel_width)),
-        n_theta, n_phi, k["pi"], k["theta_scale"], k["half_pi"],
-        k["phi_scale"], k["max_length"], k["big"], int(for_motion_planner),
-        int(robot_r2_grids), _build.stream_of(d))
+        rc_out.data_ptr(), _build.stream_of(d), *_host_ints(pvt),
+        *_host_floats(origin)) + _carve_config(
+            X, Y, Z, float(voxel_width), bool(for_motion_planner),
+            int(robot_r2_grids), n_theta, n_phi)
+    rc = _build.fn("gie_carve")(args, len(args))
     carve.launches += 1
     _build.check("gie_carve", rc)
     return inst, rc_out
 
 
+panorama.launches = 0
 carve.launches = 0

@@ -3,7 +3,8 @@ wrappers + plain versions.
 
 Counterparts of gie_mapping_tpu/ops/pallas/envelope.py::envelope_packed_pallas,
 ::envelope_mid_pallas and ::envelope_pallas (with packed_out and one
-payload); the CUDA kernels are csrc/envelope.cu.  All three return the
+payload); the CUDA kernels are csrc/envelope.cu (the generic envelope runs
+envelope_mid's with one batch row).  All three return the
 packed key `best << idx_bits | site` (ties to the smallest site, best capped
 at (1 << (31 - idx_bits)) - 1) and the winning site's payload.
 """
@@ -13,9 +14,10 @@ import torch
 
 from . import _build
 
-# the O(N) kernels keep 12 (phase 2) or 16 (phase 3) bytes per site and
-# lane in shared memory (csrc/envelope.cu); the presets' canvases reach
-# N = 240 along x (phase 2) and 168 along z (phase 3)
+# the O(N) kernels keep 12 (phase 2) or 16 (phase 3 and the generic
+# envelope) bytes per site and lane in shared memory (csrc/envelope.cu);
+# the presets' canvases reach N = 240 along x (phase 2) and 168 along z
+# (phase 3), their 2-D windows N = 200 along x (the generic envelope)
 ENVELOPE_PACKED_MAX_N = 512
 ENVELOPE_MID_MAX_N = 384
 
@@ -134,27 +136,30 @@ def envelope_mid(f: torch.Tensor, pay: torch.Tensor):
 
 
 def envelope(f: torch.Tensor, pay: torch.Tensor):
-    """Envelope over axis 0 of [N, ...] site costs `f` with per-site
-    payload `pay`.  Returns (key, payload) shaped like `f`.
+    """Envelope over axis 0 of [N, ...] site costs `f` (0 <= f; a site at
+    f >= cap never wins) with per-site payload `pay`.  Returns (key,
+    payload) shaped like `f`.
 
-    Like envelope_pallas, it expects a sited lane's best cost below the
-    cap (batch_edt's costs never reach it); costs above the cap clamp.
-
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch envelope_mid's
+    O(N) kernel with one batch row, which takes N <= ENVELOPE_MID_MAX_N
+    sites."""
     _check("envelope", f, pay)
     if f.device.type == "cpu":
         return envelope_plain(f, pay)
     N = f.shape[0]
+    if N > ENVELOPE_MID_MAX_N:
+        raise ValueError(f"envelope: the kernel takes at most "
+                         f"{ENVELOPE_MID_MAX_N} sites, got {N}")
     L = f.numel() // max(N, 1)
     fs = f.contiguous()
     ps = pay.contiguous()
     key = torch.empty_like(fs)
     pout = torch.empty_like(fs)
-    rc = _build.fn("gie_envelope")(
-        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), N, L,
-        env_idx_bits(N), _build.stream_of(fs))
+    rc = _build.fn("gie_envelope_mid")(
+        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), 1, N,
+        L, env_idx_bits(N), _build.stream_of(fs))
     envelope.launches += 1
-    _build.check("gie_envelope", rc)
+    _build.check("gie_envelope_mid", rc)
     return key, pout
 
 

@@ -4,7 +4,8 @@ rounds it, on every device.
 Three PyTorch defaults would otherwise move results by an ulp, and an ulp
 moves a voxel across a panorama bin edge:
   * CUDA divides by a Python scalar as a multiply by its reciprocal;
-  * the vectorised CPU float32 sqrt is off by one ulp for ~0.6 % of inputs;
+  * the vectorised CPU float32 sqrt is off by one ulp for ~0.6 % of inputs,
+    and the float64 one is not always correctly rounded either;
   * XLA contracts some multiply-adds into fused multiply-adds, which
     PyTorch has no operator for.
 """
@@ -21,10 +22,23 @@ def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
 
 
 def sqrt_f32(a: torch.Tensor) -> torch.Tensor:
-    """Correctly rounded float32 square root: the float64 root rounded to
-    float32 (float64 carries more than 2 * 24 + 2 bits, so the double
-    rounding cannot err)."""
-    return torch.sqrt(a.double()).float()
+    """Correctly rounded float32 square root of float32 `a`.
+
+    The float64 root rounded to float32 is right if that root is correctly
+    rounded (float64 carries more than 2 * 24 + 2 bits), but PyTorch's CPU
+    float64 sqrt has been seen to misround roots that lie a hair from a
+    float32 midpoint.  So the exact squares of the two midpoints next to
+    the result settle it: a midpoint has 25 significant bits, its square
+    at most 50, exact in float64, and no float32 `a` equals one."""
+    a64 = a.double()
+    r = torch.sqrt(a64).float()
+    up = torch.nextafter(r, torch.full_like(r, math.inf))
+    dn = torch.nextafter(r, torch.full_like(r, -math.inf))
+    r64 = r.double()
+    m_up = (r64 + up.double()) * 0.5
+    m_dn = (r64 + dn.double()) * 0.5
+    r = torch.where(m_up * m_up < a64, up, r)
+    return torch.where((r > 0) & (m_dn * m_dn > a64), dn, r)
 
 
 def fma_f32(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -129,11 +129,12 @@ def test_state_constructors_default_to_the_card(monkeypatch):
         ms.state_from_numpy(st)
 
 
-def _around_limit(axis, limit, merge_mode):
+def _around_limit(axis, limit, merge_mode, flat=False):
     """scan2D configs whose EDT grid (the canvas, or the relax engine's
     window) along `axis` is the largest within `limit` and the smallest
-    above it, the window grown one voxel at a time."""
-    size = [10.0, 10.0, 3.0]
+    above it, the window grown one voxel at a time; `flat`: a one-voxel-deep
+    window (Z == 1)."""
+    size = [10.0, 10.0, 0.1 if flat else 3.0]
     under = None
     for n in range(1, 2 * limit):
         size[axis] = round(n * 0.1, 6)
@@ -147,13 +148,15 @@ def _around_limit(axis, limit, merge_mode):
 
 @pytest.mark.parametrize("axis,limit,merge_mode", [
     (0, "packed", "canvas_edt"), (1, "phase1", "canvas_edt"),
-    (2, "mid", "canvas_edt"), (0, "packed", "relax"), (2, "mid", "relax")])
+    (2, "mid", "canvas_edt"), (0, "packed", "relax"), (2, "mid", "relax"),
+    (0, "flat", "relax")])
 def test_configs_beyond_the_kernels_limits_are_refused(monkeypatch, axis, limit,
                                                        merge_mode):
     """On a CUDA device the mapper refuses, when it is built, a config whose
     EDT grid is beyond a kernel's limit (phase 1: Y <= 1024; the phase-2
-    envelope: X sites; the phase-3 one: Z sites), instead of raising inside
-    the first EDT; a config just within the limits passes that check."""
+    envelope: X sites; the phase-3 one: Z sites; on a Z == 1 window the
+    generic envelope: X sites), instead of raising inside the first EDT; a
+    config just within the limits passes that check."""
     import torch
 
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
@@ -161,8 +164,11 @@ def test_configs_beyond_the_kernels_limits_are_refused(monkeypatch, axis, limit,
     from gie_mapping_tpu_torch.ops.kernels import envelope as tenv
 
     n = {"packed": tenv.ENVELOPE_PACKED_MAX_N, "phase1": 1024,
-         "mid": tenv.ENVELOPE_MID_MAX_N}[limit]
-    under, over = _around_limit(axis, n, merge_mode)
+         "mid": tenv.ENVELOPE_MID_MAX_N, "flat": tenv.ENVELOPE_MID_MAX_N}[limit]
+    under, over = _around_limit(axis, n, merge_mode, flat=limit == "flat")
+    if limit == "flat":
+        assert under.local_size[2] == over.local_size[2] == 1
+        assert (under.local_size[0], over.local_size[0]) == (n, n + 1)
     assert kernel_limits(under) == [] and len(kernel_limits(over)) == 1
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(NotImplementedError, match="limits"):

@@ -18,6 +18,11 @@ from gie_mapping_tpu_torch.ops.kernels import envelope as ke
 from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
 from gie_mapping_tpu_torch.ops.kernels import shift as ksh
 from gie_mapping_tpu_torch.utils.config import cow_lady_config
+from test_torch_carve_cases import POINTS as CARVE_POINTS
+from test_torch_carve_cases import WINDOWS as CARVE_WINDOWS
+from test_torch_carve_cases import points as carve_points
+from test_torch_carve_cases import tables as carve_tables
+from test_torch_carve_cases import window as carve_window
 from test_torch_envelope_cases import CASES as ENVELOPE_CASES
 from test_torch_envelope_cases import MID_CASES, mid_case
 from test_torch_envelope_cases import case as envelope_case
@@ -161,7 +166,7 @@ def test_gather_archive_rows_kernel(dev, K):
 
 
 @pytest.mark.parametrize("N,L", [(1, 45), (2, 45), (100, 100), (152, 333),
-                                 (56, 128 * 128)])
+                                 (56, 128 * 128), (128, 56 * 128)])
 def test_generic_envelope_kernel_matches_plain(dev, N, L):
     g = torch.Generator().manual_seed(N)
     cap = (1 << (31 - ke.env_idx_bits(N))) - 1
@@ -173,6 +178,34 @@ def test_generic_envelope_kernel_matches_plain(dev, N, L):
     f, pay = f.to(dev), pay.to(dev)
     for a, b in zip(ke.envelope(f, pay), ke.envelope_plain(f, pay)):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", MID_CASES)
+def test_generic_envelope_kernel_every_lane(dev, name):
+    """The generic envelope (the FH body with B = 1) on phase 3's edge
+    cases, each as [N, B * L] lanes."""
+    f, pay = mid_case(name)
+    B, N, L = f.shape
+    cols = lambda a: torch.from_numpy(a).permute(1, 0, 2).reshape(N, B * L).contiguous().to(dev)
+    f, pay = cols(f), cols(pay)
+    for a, b in zip(ke.envelope(f, pay), ke.envelope_plain(f, pay)):
+        assert torch.equal(a, b)
+
+
+def test_generic_envelope_kernel_limits(dev):
+    """At the largest N it takes the kernel still agrees; above it the
+    wrapper raises."""
+    g = torch.Generator().manual_seed(10)
+    N = ke.ENVELOPE_MID_MAX_N
+    f = torch.randint(0, 1 << 12, (N, 70), generator=g, dtype=torch.int32)
+    f[torch.rand(f.shape, generator=g) < 0.9] = 1 << 28
+    pay = torch.randint(0, 1 << 30, f.shape, generator=g, dtype=torch.int32)
+    f, pay = f.to(dev), pay.to(dev)
+    for a, b in zip(ke.envelope(f, pay), ke.envelope_plain(f, pay)):
+        assert torch.equal(a, b)
+    big = torch.zeros((N + 1, 4), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError):
+        ke.envelope(big, big)
 
 
 def test_batch_edt_2d_on_gpu_matches_cpu(dev):
@@ -227,15 +260,91 @@ def test_carve_kernel_matches_plain(dev):
     origin = np.asarray([0.31, -0.17, 1.13], np.float32)
     pvt = np.asarray([-17, -22, 0], np.int32)
     nt, np_ = rc.panorama_bins(local)
-    depth, cnt = rc.panorama(pts, valid, origin, n_theta=nt, n_phi=np_,
-                             local_size=local, voxel_width=0.1)
-    ep = rc.endpoint_counts(pts, valid, pvt, local_size=local, voxel_width=0.1,
-                            ogm_min_h=0.0, ogm_max_h=2.5)
+    tables = kc.panorama(pts, valid, origin, pvt, local_size=local,
+                         voxel_width=0.1, ogm_min_h=0.0, ogm_max_h=2.5,
+                         n_theta=nt, n_phi=np_)
     kw = dict(local_size=local, voxel_width=0.1, n_theta=nt, n_phi=np_,
               for_motion_planner=True, robot_r2_grids=16)
-    for a, b in zip(kc.carve(depth, cnt, ep, pvt, origin, **kw),
-                    kc.carve_plain(depth, cnt, ep, pvt, origin, **kw)):
+    for a, b in zip(kc.carve(*tables, pvt, origin, **kw),
+                    kc.carve_plain(*tables, pvt, origin, **kw)):
         assert torch.equal(a, b)
+
+
+def _panorama_kw(c):
+    return dict(local_size=c["local_size"], voxel_width=c["voxel_width"],
+                ogm_min_h=c["ogm_min_h"], ogm_max_h=c["ogm_max_h"],
+                n_theta=c["n_theta"], n_phi=c["n_phi"])
+
+
+@pytest.mark.parametrize("name", CARVE_POINTS)
+def test_panorama_kernel_every_bin(dev, name):
+    """gie_panorama on the cases its CPU model is held on (invalid points,
+    points outside the height band or the window, several points in one
+    bin, points at the origin and on the window's faces): every depth bit,
+    count and endpoint count equals the plain version's."""
+    c = carve_points(name)
+    pts = torch.from_numpy(c["points"]).to(dev)
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    before = kc.panorama.launches
+    got = kc.panorama(pts, valid, c["origin"], c["pvt"], **_panorama_kw(c))
+    assert kc.panorama.launches == before + 1
+    want = kc.panorama_plain(pts, valid, c["origin"], c["pvt"], **_panorama_kw(c))
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+
+
+@pytest.mark.parametrize("name", CARVE_WINDOWS)
+def test_carve_kernel_every_voxel(dev, name):
+    """gie_carve on the windows its CPU model is held on (the cow-lady and
+    test windows, the ugv_corridor preset's 200x200x24), with tables that
+    hold empty, near and far bins."""
+    w = carve_window(name)
+    tables = [torch.from_numpy(a).to(dev) for a in carve_tables(name)]
+    kw = dict(local_size=w["local_size"], voxel_width=w["voxel_width"],
+              n_theta=w["n_theta"], n_phi=w["n_phi"],
+              for_motion_planner=name.endswith("_off"), robot_r2_grids=16)
+    for a, b in zip(kc.carve(*tables, w["pvt"], w["origin"], **kw),
+                    kc.carve_plain(*tables, w["pvt"], w["origin"], **kw)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("name", CARVE_POINTS)
+def test_pointcloud_project_on_gpu_matches_cpu(dev, name):
+    """The whole sensor model on the card (two kernel calls) equals it on
+    the CPU (the plain versions)."""
+    c = carve_points(name)
+    kw = dict(_panorama_kw(c), for_motion_planner=True, robot_r2_grids=16)
+    args = (c["origin"], c["pvt"])
+    want = rc.pointcloud_project(torch.from_numpy(c["points"]),
+                                 torch.from_numpy(c["valid"]), *args, **kw)
+    got = rc.pointcloud_project(torch.from_numpy(c["points"]).to(dev),
+                                torch.from_numpy(c["valid"]).to(dev), *args, **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+def test_pointcloud_project_dispatches_only_allocations(dev):
+    """On the card the sensor model issues no PyTorch operation but the
+    allocation of its tables and outputs: the panorama, the endpoint
+    counts and the carve are the two kernel calls."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.ops = []
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            self.ops.append(str(func))
+            return func(*args, **(kwargs or {}))
+
+    c = carve_points("cloud_100")
+    pts = torch.from_numpy(c["points"]).to(dev)
+    valid = torch.from_numpy(c["valid"]).to(dev)
+    kw = dict(_panorama_kw(c), for_motion_planner=True, robot_r2_grids=16)
+    with Count() as count:
+        rc.pointcloud_project(pts, valid, c["origin"], c["pvt"], **kw)
+    assert count.ops and all(op.startswith("aten.empty") for op in count.ops), count.ops
 
 
 def _words(shape, seed):

@@ -2,6 +2,7 @@
 package, bit for bit: the float helpers that decide panorama bins, the
 whole `pointcloud_project` (JAX on its CPU gather branch), and the carve's
 plain version against the Pallas `panorama_select` in interpret mode."""
+import warnings
 from fractions import Fraction
 
 import jax
@@ -62,15 +63,79 @@ def test_fma_f32_is_correctly_rounded():
     np.testing.assert_array_equal(_bits(got), _bits(want))
 
 
+def test_sqrt_f32_is_correctly_rounded(monkeypatch):
+    """sqrt_f32 rounds correctly where it is hardest, roots a hair from a
+    float32 midpoint, and stays right when the float64 root it starts from
+    is off (as PyTorch's CPU float64 sqrt has been seen to be)."""
+    rng = np.random.default_rng(4)
+    r = rng.uniform(0.01, 100, 1 << 17).astype(np.float32)
+    mid = (r.astype(np.float64) + np.nextafter(r, np.float32(np.inf))) / 2
+    a = np.concatenate([(mid * mid).astype(np.float32),
+                        rng.uniform(0, 1e4, 1 << 15).astype(np.float32),
+                        np.asarray([0.0, -0.0, 1e-45, 1e-40, 1.0, np.inf,
+                                    3.4e38], np.float32)])
+    want = np.sqrt(a)  # IEEE: correctly rounded
+    np.testing.assert_array_equal(_bits(tcarve.sqrt_f32(T(a)).numpy()), _bits(want))
+    exact = torch.sqrt
+    monkeypatch.setattr(torch, "sqrt", lambda t: exact(t) * (1 + 3e-11))
+    np.testing.assert_array_equal(_bits(tcarve.sqrt_f32(T(a)).numpy()), _bits(want))
+
+
+def _fma_model(a, b, c):
+    """float32 a*b + c with one rounding, in numpy: the product is exact in
+    float64; the float64 sum's exact error (TwoSum) settles the one case
+    where rounding that sum to float32 could differ, a sum exactly halfway
+    between two floats."""
+    p = a.astype(np.float64) * b
+    s = p + c
+    bb = s - p
+    err = (p - (s - bb)) + (c - bb)
+    f = s.astype(np.float32)
+    up = np.nextafter(f, np.float32(np.inf))
+    dn = np.nextafter(f, np.float32(-np.inf))
+    half_up = s == (f.astype(np.float64) + up) / 2
+    half_dn = s == (f.astype(np.float64) + dn) / 2
+    return np.where(half_up & (err > 0), up, np.where(half_dn & (err < 0), dn, f))
+
+
+def _xla_fuses_multiply_add():
+    """Whether XLA's CPU code, in this process, contracts a jitted a*b + c
+    into a fused multiply-add: on operands where the two roundings differ
+    (1 + 2^-12 squared, minus 1), the count of elements of each."""
+    a = np.full(1024, 1 + 2 ** -12, np.float32)
+    got = np.asarray(jax.jit(lambda a, b, c: a * b + c)(a, a, -np.ones_like(a)))
+    fused = int((got == np.float32(2 ** -11 + 2 ** -24)).sum())
+    return fused == got.size, fused, int((got == np.float32(2 ** -11)).sum())
+
+
 def test_norms_match_jax_fusion():
+    """norm3_f32 and hypot2_f32 round as XLA's CPU fusion does, with fused
+    multiply-adds: bitwise against a numpy model of that rounding, and
+    against XLA's own jitted norm where XLA fuses in this process (it does
+    not when its CPU target lacks FMA, e.g. under
+    XLA_FLAGS=--xla_cpu_max_isa=AVX; the committed fixtures and
+    pointcloud_project's bins were made with the fused rounding)."""
     rng = np.random.default_rng(2)
     v = (rng.normal(size=(1 << 16, 3)) * 3).astype(np.float32)
+    x, y, z = v[:, 0].copy(), v[:, 1].copy(), v[:, 2].copy()
+    norm = np.sqrt(_fma_model(z, z, _fma_model(y, y, x * x)))
+    hyp = np.sqrt(_fma_model(x, x, y * y))
+    got_n = tcarve.norm3_f32(T(v)).numpy()
+    got_h = tcarve.hypot2_f32(T(x), T(y)).numpy()
+    np.testing.assert_array_equal(_bits(got_n), _bits(norm))
+    np.testing.assert_array_equal(_bits(got_h), _bits(hyp))
+    # the model is the fused form: the unfused one differs from it
+    assert (_bits(np.sqrt(x * x + y * y)) != _bits(hyp)).sum() > 1000
+    fuses, n_fused, n_unfused = _xla_fuses_multiply_add()
+    if not fuses:
+        warnings.warn(f"XLA's CPU code does not fuse a*b + c in this process "
+                      f"({n_fused} of 1024 probe elements fused, {n_unfused} "
+                      f"unfused): its jitted norm is not compared")
+        return
     jn = np.asarray(jax.jit(lambda a: jnp.linalg.norm(a, axis=-1))(v))
     jh = np.asarray(jax.jit(lambda a: jnp.sqrt(a[:, 0] ** 2 + a[:, 1] ** 2))(v))
-    np.testing.assert_array_equal(_bits(tcarve.norm3_f32(T(v)).numpy()), _bits(jn))
-    np.testing.assert_array_equal(
-        _bits(tcarve.hypot2_f32(T(v[:, 0].copy()), T(v[:, 1].copy())).numpy()),
-        _bits(jh))
+    np.testing.assert_array_equal(_bits(got_n), _bits(jn))
+    np.testing.assert_array_equal(_bits(got_h), _bits(jh))
 
 
 def test_l2g_matches_jax_eager():
@@ -128,8 +193,10 @@ def test_carve_lookup_matches_panorama_select():
     pts, valid, origin, pvt = _scene(local_size, pos, yaw, n_rays, seed=6)
     kw = _kw(local_size, fmp)
     nt, np_ = kw["n_theta"], kw["n_phi"]
-    depth, cnt = trc.panorama(T(pts), T(valid), origin, n_theta=nt, n_phi=np_,
-                              local_size=local_size, voxel_width=0.1)
+    depth, cnt, ep = tcarve.panorama(T(pts), T(valid), origin, pvt,
+                                     local_size=local_size, voxel_width=0.1,
+                                     ogm_min_h=0.0, ogm_max_h=2.5, n_theta=nt,
+                                     n_phi=np_)
     vr, vbt, vbp = tcarve.voxel_bins(pvt, origin, local_size=local_size,
                                      voxel_width=0.1, n_theta=nt, n_phi=np_)
     assert (vbt == vbt[:, :, :1]).all()  # theta depends on the column only
@@ -141,8 +208,6 @@ def test_carve_lookup_matches_panorama_select():
     np.testing.assert_array_equal(np.asarray(vd), depth.reshape(-1)[idx].numpy())
     np.testing.assert_array_equal(np.asarray(vc), cnt.reshape(-1)[idx].numpy())
     # and the carve's own result equals the JAX sensor model's
-    ep = trc.endpoint_counts(T(pts), T(valid), pvt, local_size=local_size,
-                             voxel_width=0.1, ogm_min_h=0.0, ogm_max_h=2.5)
     ti, tc = tcarve.carve(depth, cnt, ep, pvt, origin, local_size=local_size,
                           voxel_width=0.1, n_theta=nt, n_phi=np_,
                           for_motion_planner=fmp, robot_r2_grids=16)
