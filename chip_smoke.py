@@ -61,10 +61,26 @@ Phases, one JSON line each; any failure exits non-zero:
                 must be its squared distance to its coc; relax sweep counts,
                 frames and state must equal the JAX package's
                 (tests/fixtures/torch_port_scan2d_flat_ref.npz).
-  8. profile  - only with --profile: torch.profiler over a second run of
-                each path.
-Then one line with every kernel's launches (summed over the four paths,
-each counted from 0 just before it), error, times, bound and share, the
+  8. replay   - the replay mapper (process_pointcloud_batch) at bench.py's
+                own settings (datasets.cow_lady_bench: fuse_raycast on,
+                131072 points, streaming off): 3 frames through
+                process_pointcloud, then the 40-frame closed circle in one
+                call with chunk 40; then the scroll path's 26 poses with
+                fuse_raycast on and streaming on, in one call with chunk
+                10.  Each must equal the JAX package's replay
+                (tests/fixtures/torch_port_replay_ref.npz: final state,
+                last window outputs, payload8 of cost_map_msg, every run's
+                per_frame scalars, counters, and the scroll part's host
+                mirror) and the port's own per-frame run of the same frames
+                in this process (final state and last outputs); the bench
+                part's final canvas EDT must equal scipy's.  Prints online
+                and replay ms per frame (CUDA events over each call; the
+                replay timed again over a second pass, as bench.py does).
+  9. profile  - only with --profile: torch.profiler over a second run of
+                each path of phases 4-7, and over bench.py's 40 frames
+                after its 3 online ones, online and replayed.
+Then one line with every kernel's launches (summed over the paths, each
+counted from 0 just before it), error, times, bound and share, the
 card's nvidia-smi line, and last `{"ok": true, "device": {...}}`.
 """
 from __future__ import annotations
@@ -82,6 +98,9 @@ REF = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_ref.npz")
 REF_SCROLL = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_scroll_ref.npz")
 REF_SCAN2D = os.path.join(ROOT, "tests", "fixtures", "torch_port_scan2d_ref.npz")
 REF_FLAT = os.path.join(ROOT, "tests", "fixtures", "torch_port_scan2d_flat_ref.npz")
+REF_REPLAY = os.path.join(ROOT, "tests", "fixtures", "torch_port_replay_ref.npz")
+# the scroll path's replay: frames per run (make_torch_port_ref.SCROLL_CHUNK)
+SCROLL_CHUNK = 10
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine (tests/fixtures/make_torch_port_ref.py::FLAT)
 FLAT = dict(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
@@ -1596,6 +1615,263 @@ def phase_scan(dev, wrappers, flat):
     return launches
 
 
+def timed(fn):
+    """(fn(), CUDA-event ms, host wall ms) of one call, from an idle card."""
+    import torch
+
+    torch.cuda.synchronize()
+    s = torch.cuda.Event(enable_timing=True)
+    e = torch.cuda.Event(enable_timing=True)
+    t0 = time.perf_counter()
+    s.record()
+    r = fn()
+    e.record()
+    torch.cuda.synchronize()
+    return r, s.elapsed_time(e), (time.perf_counter() - t0) * 1e3
+
+
+@contextlib.contextmanager
+def recorded_runs(runs):
+    """Append the per_frame scalars (numpy) of every run that the mapper
+    dispatches through pipeline.replay_frames to `runs`."""
+    from gie_mapping_tpu_torch.models import mapper as mm
+
+    orig = mm.replay_frames
+
+    def recorded(*args, **kw):
+        res = orig(*args, **kw)
+        runs.append({k: v.cpu().numpy() for k, v in res[3].items()})
+        return res
+
+    mm.replay_frames = recorded
+    try:
+        yield
+    finally:
+        mm.replay_frames = orig
+
+
+def replay_end(mapper, out, runs):
+    """A replay's end as the fixture records it
+    (make_torch_port_ref._last): state, last outputs, payload8, counters and
+    every run's per_frame.  Returns (record, state as numpy)."""
+    import hashlib
+
+    import numpy as np
+
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+
+    st = state_to_numpy(mapper.state)
+    msg = out.cost_map_msg(mapper.cfg.voxel_width)
+    rec = {
+        "state_sha": state_digest(st),
+        "out_sha": output_digest(out.glb_type, out.dist_sq, out.coc),
+        "payload8_sha": hashlib.sha256(msg["payload8"]).hexdigest(),
+        "map_ct": mapper.map_ct, "origin": np.asarray(mapper._origin, np.int32),
+        "scanned_frames": mapper.replay_scanned_frames,
+        "scanned_scrolls": mapper.replay_scanned_scrolls,
+        "run_lengths": [len(r["gate_level"]) for r in runs]}
+    for k in runs[0]:
+        rec["pf_" + k] = np.concatenate([r[k] for r in runs])
+    return rec, st
+
+
+def bench_inputs():
+    """(config, poses, clouds, n_online, chunk) of bench.py's replay
+    (datasets.cow_lady_bench)."""
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_bench)
+    from gie_mapping_tpu_torch.utils.config import cow_lady_config
+
+    overrides, world, poses, n_online, chunk = cow_lady_bench()
+    clouds = [world.pointcloud(p, n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(poses)]
+    return cow_lady_config(**overrides), poses, clouds, n_online, chunk
+
+
+def run_bench(dev, inputs, replay, loop_ctx=None):
+    """bench.py's frames on a fresh mapper: the first n_online through
+    process_pointcloud, then the rest through one process_pointcloud_batch
+    call (`replay`) or through process_pointcloud, inside `loop_ctx`.
+    Returns a record per frame of the rest (wall_ms; a replay's wall time
+    split evenly)."""
+    import torch
+
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    cfg, poses, clouds, n_online, chunk = inputs
+    m = VolumetricMapper(cfg, device=dev)
+    pts, val = m.stage_pointcloud_batch(clouds)
+    for i in range(n_online):
+        m.process_pointcloud(poses[i], pts[i], val[i])
+    torch.cuda.synchronize()
+    n = len(poses) - n_online
+    with loop_ctx or contextlib.nullcontext():
+        t0 = time.perf_counter()
+        if replay:
+            m.process_pointcloud_batch(poses[n_online:], pts[n_online:],
+                                       val[n_online:], chunk=chunk)
+        else:
+            for i in range(n_online, len(poses)):
+                m.process_pointcloud(poses[i], pts[i], val[i])
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    return [{"wall_ms": wall / n}] * n
+
+
+def online_run(dev, cfg, poses, clouds):
+    """The same frames through process_pointcloud on a fresh mapper:
+    (mapper, last output, CUDA-event ms of each frame)."""
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    m = VolumetricMapper(cfg, device=dev)
+    pts, val = m.stage_pointcloud_batch(clouds)
+    out, ms = None, []
+    for i, p in enumerate(poses):
+        out, t, _ = timed(lambda: m.process_pointcloud(p, pts[i], val[i]))
+        ms.append(t)
+    return m, out, ms
+
+
+def phase_replay(dev, wrappers):
+    """The replay mapper at bench.py's settings and on the scroll path,
+    against the JAX fixture and the port's own per-frame runs; returns the
+    launch counts of its two runs."""
+    import warnings
+
+    import numpy as np
+
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+    from gie_mapping_tpu_torch.models.mapper import (CapacityWarning,
+                                                     VolumetricMapper)
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_scroll)
+    from gie_mapping_tpu_torch.utils import geometry as geo
+    from gie_mapping_tpu_torch.utils.config import cow_lady_config
+
+    ph = "replay"
+    ref = np.load(REF_REPLAY)
+    launches = dict.fromkeys(wrappers, 0)
+
+    def counted(run):
+        for w in wrappers.values():
+            w.launches = 0
+        r = run()
+        got = {k: w.launches for k, w in wrappers.items()}
+        for k, v in got.items():
+            launches[k] += v
+        return r, got
+
+    def check(prefix, rec):
+        """The fields of `rec` that differ from the fixture's."""
+        return [k for k, v in rec.items()
+                if not np.array_equal(np.asarray(v), ref[f"{prefix}_{k}"])]
+
+    # -- bench.py's replay ---------------------------------------------------
+    cfg, poses, clouds, n_online, chunk = bench_inputs()
+    m = VolumetricMapper(cfg, device=dev)
+    pts, val = m.stage_pointcloud_batch(clouds)
+    runs = []
+
+    def bench():
+        sha = []
+        for i in range(n_online):
+            o = m.process_pointcloud(poses[i], pts[i], val[i])
+            sha.append(output_digest(o.glb_type, o.dist_sq, o.coc))
+        with recorded_runs(runs):
+            out, ms, wall = timed(lambda: m.process_pointcloud_batch(
+                poses[n_online:], pts[n_online:], val[n_online:], chunk=chunk))
+        return sha, out.fetch(), ms, wall
+
+    (online_sha, out, ms_b, wall_b), got_b = counted(bench)
+    rec, st = replay_end(m, out, runs)
+    bad = check("bench", rec)
+    online_ok = online_sha == ref["bench_online_out_sha"].tolist()
+    edt_bad, kept = edt_mismatch(st)
+    n = len(poses) - n_online
+    # bench.py's timed pass: the same 40 frames again on the same mapper
+    _, ms_b2, wall_b2 = timed(lambda: m.process_pointcloud_batch(
+        poses[n_online:], pts[n_online:], val[n_online:], chunk=chunk))
+    lm, lo, online_ms = online_run(dev, cfg, poses, clouds)
+    loop_ok = (state_digest(state_to_numpy(lm.state)) == rec["state_sha"]
+               and output_digest(lo.glb_type, lo.dist_sq, lo.coc) == rec["out_sha"])
+    emit({"phase": ph, "part": "bench", "frames": n, "chunk": chunk,
+          "launches": got_b, "fixture_mismatch": bad,
+          "online_frames_match": online_ok, "frame_loop_match": loop_ok,
+          "scipy_mismatch": edt_bad, "kept_outside_canvas": kept,
+          "scanned_frames": rec["scanned_frames"],
+          "scanned_scrolls": rec["scanned_scrolls"],
+          "run_lengths": rec["run_lengths"],
+          "gate_levels": rec["pf_gate_level"].tolist(),
+          "replay_ms_per_frame": ms_b / n, "replay_wall_ms_per_frame": wall_b / n,
+          "replay_again_ms_per_frame": ms_b2 / n,
+          "replay_again_wall_ms_per_frame": wall_b2 / n,
+          "online_ms_per_frame": float(np.mean(online_ms[n_online:])),
+          "online_ms_per_frame_median": float(np.median(online_ms[n_online:]))})
+    require(not bad, ph, f"bench replay differs from the JAX reference in {bad}")
+    require(online_ok, ph, "bench online frames differ from the JAX reference")
+    require(loop_ok, ph, "bench replay differs from the port's per-frame run")
+    require(edt_bad == 0, ph, f"canvas dist_sq differs from scipy at {edt_bad} voxels")
+    require(rec["scanned_frames"] == n and rec["scanned_scrolls"] > 0, ph,
+            "the bench replay must run all its frames in runs with scrolls")
+    need = ("phase1", "envelope_packed", "envelope_mid", "panorama", "carve",
+            "shift_canvas")
+    require(all(got_b[k] > 0 for k in need), ph,
+            f"a kernel of the bench replay never launched: {got_b}")
+
+    # -- the scroll path, replayed (streaming on) -----------------------------
+    overrides, world, sposes = cow_lady_scroll()
+    cfg = cow_lady_config(**overrides, fuse_raycast=True)
+    require(cfg.display_glb_edt and cfg.display_glb_ogm, ph, "streaming is off")
+    projs = [geo.Projection.from_pose(*p) for p in sposes]
+    clouds = [world.pointcloud(p, n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(projs)]
+    m = VolumetricMapper(cfg, device=dev)
+    pts, val = m.stage_pointcloud_batch(clouds)
+    runs = []
+
+    def scroll():
+        with recorded_runs(runs), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out, ms, wall = timed(lambda: m.process_pointcloud_batch(
+                projs, pts, val, chunk=SCROLL_CHUNK))
+            m.flush_stream()
+            m.check_capacity()
+        return out.fetch(), ms, wall, caught
+
+    (out, ms_s, wall_s, caught), got_s = counted(scroll)
+    cap_warn = [str(w.message) for w in caught
+                if issubclass(w.category, CapacityWarning)]
+    rec, st = replay_end(m, out, runs)
+    rec["mirror_sha"] = m.mirror.digest()
+    bad = check("scroll", rec)
+    lm, lo, online_ms = online_run(dev, cfg, projs, clouds)
+    loop_ok = (state_digest(state_to_numpy(lm.state)) == rec["state_sha"]
+               and output_digest(lo.glb_type, lo.dist_sq, lo.coc) == rec["out_sha"])
+    emit({"phase": ph, "part": "scroll", "frames": len(projs),
+          "chunk": SCROLL_CHUNK, "launches": got_s, "fixture_mismatch": bad,
+          "frame_loop_match": loop_ok, "capacity": m.capacity_report(),
+          "capacity_warnings": cap_warn, "mirror_blocks": len(m.mirror),
+          "scanned_frames": rec["scanned_frames"],
+          "scanned_scrolls": rec["scanned_scrolls"],
+          "run_lengths": rec["run_lengths"],
+          "replay_ms_per_frame": ms_s / len(projs),
+          "replay_wall_ms_per_frame": wall_s / len(projs),
+          "online_ms_per_frame": float(np.mean(online_ms[1:])),
+          "online_ms_per_frame_median": float(np.median(online_ms[1:]))})
+    require(not bad, ph, f"scroll replay differs from the JAX reference in {bad}")
+    require(loop_ok, ph, "scroll replay differs from the port's per-frame run")
+    require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
+    require(rec["scanned_scrolls"] > 0 and rec["scanned_frames"] < len(projs), ph,
+            "the scroll replay must scroll inside runs and fall back around "
+            "the teleport")
+    require(all(v > 0 for k, v in got_s.items() if k != "envelope"), ph,
+            f"a kernel of the scroll replay never launched: {got_s}")
+    emit({"phase": ph, "ok": True, "launches": launches})
+    return launches
+
+
 def phase_profile(dev, frames, poses, out_dir=None):
     """torch.profiler over the frame loop of a second run of each path:
     device time by kernel, launches, and the device's idle share of the
@@ -1608,6 +1884,9 @@ def phase_profile(dev, frames, poses, out_dir=None):
     for name, flat in (("scan2d", False), ("scan2d_flat", True)):
         si = scan_inputs(flat)
         runs[name] = lambda ctx, si=si: run_scan(dev, *si, loop_ctx=ctx)[1]
+    bi = bench_inputs()
+    for name, replay in (("bench_online", False), ("bench_replay", True)):
+        runs[name] = lambda ctx, r=replay: run_bench(dev, bi, r, loop_ctx=ctx)
     for name, run in runs.items():
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         recs = run(prof)
@@ -1673,7 +1952,8 @@ def main(argv=None) -> int:
         launches, frames, poses = phase_slice(dev)
         for path_launches in (phase_scroll(dev, all_wrappers()),
                               phase_scan(dev, all_wrappers(), flat=False),
-                              phase_scan(dev, all_wrappers(), flat=True)):
+                              phase_scan(dev, all_wrappers(), flat=True),
+                              phase_replay(dev, all_wrappers())):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

@@ -19,8 +19,8 @@
 // int32 order of its bits is the float order, and min and add do not depend
 // on the order of the atomics (deterministic, equal to scatter-min /
 // index_add).  The same thread registers the point's endpoint voxel
-// (floor(p / w + 0.5) - pivot, the height band, inside the window) with an
-// atomicAdd.  An invalid point does nothing.  A first small launch fills
+// (floor(fma(p, 1/w, 0.5)) - pivot, the height band, inside the window)
+// with an atomicAdd.  An invalid point does nothing.  A first small launch fills
 // the depth table with BIG_DEPTH's bits and zeroes the counts.
 //
 // gie_carve: a CTA takes kCarveRun consecutive voxels in [X, Y, Z] order
@@ -43,7 +43,9 @@
 //   rho  = sqrt(fma(x, x, y*y))
 //   theta, phi = the C library's atan2f (gie::atan2f_exact)
 //   bin  = trunc(clamp((a + pi) * scale, 0, n - 1))
-//   endpoint voxel = floor(p / w + 0.5) with an IEEE division
+//   endpoint voxel = floor(fma(p, inv_w, 0.5)), inv_w the float32 1/w
+//                    (XLA folds p / w, w a constant, into a multiply by
+//                    inv_w and contracts it with the + 0.5)
 // and the library is built with --fmad=false as a second guard.
 //
 // Bound on the H100: bytes.  The panorama reads 13 bytes a point (12 of
@@ -82,7 +84,7 @@ struct PanoramaCall {
   int32_t n, pvt_x, pvt_y, pvt_z;
   float ox, oy, oz;
   int32_t X, Y, Z;
-  float voxel_width, min_h, max_h, big;
+  float inv_voxel_width, min_h, max_h, big;
   Bins b;
 };
 struct CarveCall {
@@ -151,9 +153,9 @@ panorama_points(const PanoramaCall a) {
   atomicMin(depth_bits + bin, __float_as_int(r));
   atomicAdd(cnt + bin, 1);
 
-  const int lx = int(floorf(__fadd_rn(__fdiv_rn(px, a.voxel_width), 0.5f))) - a.pvt_x;
-  const int ly = int(floorf(__fadd_rn(__fdiv_rn(py, a.voxel_width), 0.5f))) - a.pvt_y;
-  const int lz = int(floorf(__fadd_rn(__fdiv_rn(pz, a.voxel_width), 0.5f))) - a.pvt_z;
+  const int lx = int(floorf(__fmaf_rn(px, a.inv_voxel_width, 0.5f))) - a.pvt_x;
+  const int ly = int(floorf(__fmaf_rn(py, a.inv_voxel_width, 0.5f))) - a.pvt_y;
+  const int lz = int(floorf(__fmaf_rn(pz, a.inv_voxel_width, 0.5f))) - a.pvt_z;
   if (pz >= a.min_h && pz <= a.max_h && lx >= 0 && lx < a.X && ly >= 0 &&
       ly < a.Y && lz >= 0 && lz < a.Z)
     atomicAdd((int32_t*)a.endpoint_cnt + (lx * a.Y + ly) * a.Z + lz, 1);

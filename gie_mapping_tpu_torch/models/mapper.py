@@ -3,12 +3,15 @@
 Counterpart of gie_mapping_tpu/models/mapper.py for two map makers:
 `process_pointcloud` (sensor->world transform, projective carve, the
 host-gated canvas scroll, merge) with `stage_pointcloud`, and
-`process_scan2d` (the 2-D LiDAR model, scroll, merge); `warmup`, the
-per-frame output, changed-block streaming to the host mirror
-(`_stream` / `flush_stream`) and the capacity monitor (`CapacityWarning`).
-The mapper runs on the CUDA device unless it is given another.  Not ported
-yet: the depth-camera and multi-ring sensors, the batched replay API and
-checkpoints.
+`process_scan2d` (the 2-D LiDAR model, scroll, merge); their replay forms
+`process_pointcloud_batch` (with `stage_pointcloud_batch`) and
+`process_scan2d_batch`, which plan runs of frames ahead and dispatch each
+run through pipeline.replay_frames; `warmup`, the per-frame output
+(`FrameOutput`, with the CostMap message and the planner queries),
+changed-block streaming to the host mirror (`_stream` / `flush_stream`)
+and the capacity monitor (`CapacityWarning`).  The mapper runs on the
+CUDA device unless it is given another.  Not ported yet: the depth-camera
+and multi-ring sensors (and their batch forms) and checkpoints.
 """
 from __future__ import annotations
 
@@ -21,18 +24,24 @@ import torch
 
 from ..map_state import (MapState, canvas_geometry, resolve_device,
                          shift_block_mask, stream_extract)
-from ..ops import raycast as rc
-from ..ops.scan_sensors import ScanParam, hokuyo_update
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
-from ..utils.constants import VB_WIDTH, VOX_UNKNOWN
-from .pipeline import kernel_limits, merge_frame, scroll_step
+from ..utils.constants import VB_WIDTH, VOX_OCCUPIED, VOX_UNKNOWN
+from .pipeline import (kernel_limits, merge_frame, pointcloud_sensor,
+                       replay_frames, scan_sensor, scroll_step)
+
+
+def _host(v):
+    v = np.asarray(v)
+    return v.item() if v.ndim == 0 else v
 
 
 class FrameOutput:
     """Per-frame results (the reference's CostMap).  Fields are device
-    tensors in `raw`; attribute access converts one to numpy on first use."""
+    tensors (or host numbers) in `raw`; attribute access converts one to
+    numpy on first use, `fetch` all of them at once.  A replay's output
+    also carries `per_frame`: its run's SCALAR_OUTPUTS as [n] tensors."""
 
     _FIELDS = ("edt", "glb_type", "dist_sq", "coc", "relax_iters",
                "fnt_count", "arch_dropped", "gate_level", "gate_slab_vox",
@@ -51,8 +60,8 @@ class FrameOutput:
             cache = self.__dict__["_cache"]
             if name not in cache:
                 v = self.__dict__["raw"][name]
-                v = v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
-                cache[name] = v.item() if v.ndim == 0 else v
+                cache[name] = _host(v.cpu().numpy() if isinstance(v, torch.Tensor)
+                                    else v)
             return cache[name]
         raise AttributeError(name)
 
@@ -60,10 +69,138 @@ class FrameOutput:
     def seen(self):
         return self.glb_type != VOX_UNKNOWN
 
+    def device(self, name):
+        """The un-fetched tensor (or host number) of a raw output field."""
+        return self.raw[name]
+
+    def fetch(self):
+        """Bring every field to the host with one copy and one
+        synchronisation: the tensors are packed into one byte buffer on
+        their device, copied once, and cut apart on the host."""
+        names = [k for k in FrameOutput._FIELDS if k in self.raw]
+        tens = [k for k in names if isinstance(self.raw[k], torch.Tensor)]
+        if tens:
+            flat = torch.cat([self.raw[k].contiguous().reshape(-1)
+                              .view(torch.uint8) for k in tens]).cpu().numpy()
+            at = 0
+            for k in tens:
+                t = self.raw[k]
+                n = t.numel() * t.element_size()
+                dt = np.dtype(str(t.dtype).replace("torch.", ""))
+                self._cache[k] = _host(flat[at:at + n].view(dt).reshape(t.shape))
+                at += n
+        for k in names:
+            if k not in tens:
+                self._cache[k] = _host(self.raw[k])
+        return self
+
     def cost_map(self):
         """SeenDist payload: (d, s, o) per voxel."""
         return {"d": self.edt, "o": self.glb_type, "s": self.seen,
                 "origin": self.origin}
+
+    # 8-byte SeenDist record: float d + bool s + bool o + 2 pad bytes (the
+    # reference's C struct; float aligns it to 4, so sizeof == 8)
+    PAYLOAD8_DTYPE = np.dtype(
+        [("d", "<f4"), ("s", "u1"), ("o", "u1"), ("_pad", "V2")])
+
+    def cost_map_msg(self, voxel_width: float):
+        """Byte-compatible CostMap message, so a consumer of the reference's
+        planner topic parses it unchanged.
+
+        `payload8` is the raw copy of SeenDist[volume] in the reference's
+        linear order, x fastest.  The reference's quirks are kept: only `d`
+        (the EDT in GRID units; consumers scale by `width`) and `o` (the
+        raw glb_type coerced to bool, so truthy = known) are written; `s`
+        is never assigned by the reference and is 0 here; the carrot fields
+        exist but are never set."""
+        d = np.asarray(self.edt, np.float32)
+        X, Y, Z = d.shape
+        rec = np.zeros((Z, Y, X), dtype=FrameOutput.PAYLOAD8_DTYPE)
+        rec["d"] = d.transpose(2, 1, 0)
+        rec["o"] = (self.glb_type.transpose(2, 1, 0) != 0).astype(np.uint8)
+        origin = np.asarray(self.origin, np.float32)
+        return {
+            "x_size": X, "y_size": Y, "z_size": Z,
+            "x_origin": float(origin[0]),
+            "y_origin": float(origin[1]),
+            "z_origin": float(origin[2]),
+            "width": float(voxel_width),
+            "x_carrot": 0.0, "y_carrot": 0.0, "z_carrot": 0.0,
+            "type": 1,  # CostMap::TYPE_EDT
+            "payload8": rec.tobytes(),
+        }
+
+    def local_occupied_cloud(self, voxel_width: float):
+        """World positions of the occupied window voxels."""
+        idx = np.argwhere(self.glb_type == VOX_OCCUPIED)
+        return (idx + self.pvt) * voxel_width
+
+    def local_edt_cloud(self, voxel_width: float):
+        """(world positions, distances in metres) of the seen window
+        voxels."""
+        sel = self.seen
+        idx = np.argwhere(sel)
+        return (idx + self.pvt) * voxel_width, self.edt[sel] * voxel_width
+
+    def debug_voxel(self, point_world, voxel_width: float):
+        """The window voxel that holds a world point: a dict (grid coords,
+        type, dist_m, coc in global coords), or None outside the window."""
+        g = np.floor(np.asarray(point_world, np.float64) / voxel_width
+                     + 0.5).astype(np.int64) - self.pvt
+        if np.any(g < 0) or np.any(g >= np.asarray(self.edt.shape)):
+            return None
+        i, j, k = (int(v) for v in g)
+        return {
+            "loc": (i, j, k),
+            "glb": tuple(int(v) for v in (g + self.pvt)),
+            "type": int(self.glb_type[i, j, k]),
+            "dist_m": float(self.edt[i, j, k]) * voxel_width,
+            "dist_sq_grids": int(self.dist_sq[i, j, k]),
+            "coc": tuple(int(v) for v in self.coc[i, j, k]),
+        }
+
+    def query_distance(self, points_world, voxel_width: float):
+        """Trilinearly interpolated obstacle distance and its gradient at
+        world points [..., 3] (metres), for motion planners (host numpy).
+
+        Returns (dist_m [...], grad [..., 3] (d dist / d position,
+        unitless), valid [...]: inside the window with all 8 corners
+        seen)."""
+        pts = np.asarray(points_world, np.float64)
+        shp = np.asarray(self.edt.shape)
+        g = pts / voxel_width - self.pvt  # voxel centres sit on integers
+        g0 = np.floor(g).astype(np.int64)
+        inb = np.all((g >= 0) & (g <= shp - 1), axis=-1)
+        g0c = np.clip(g0, 0, shp - 2)
+        f = np.clip(g - g0c, 0.0, 1.0)
+
+        edt = self.edt
+        seen = self.seen
+        c = np.empty(pts.shape[:-1] + (2, 2, 2))
+        ok = np.ones(pts.shape[:-1], bool)
+        for dx in (0, 1):
+            for dy in (0, 1):
+                for dz in (0, 1):
+                    ix, iy, iz = g0c[..., 0] + dx, g0c[..., 1] + dy, g0c[..., 2] + dz
+                    c[..., dx, dy, dz] = edt[ix, iy, iz]
+                    ok &= seen[ix, iy, iz]
+
+        fx, fy, fz = f[..., 0], f[..., 1], f[..., 2]
+        cz = c[..., 0] * (1 - fz[..., None, None]) + c[..., 1] * fz[..., None, None]
+        cy = cz[..., 0] * (1 - fy[..., None]) + cz[..., 1] * fy[..., None]
+        s = cy[..., 0] * (1 - fx) + cy[..., 1] * fx
+        # analytic trilinear partials (dist is s * voxel_width, position
+        # g * voxel_width: the ratio is unitless)
+        gx = cy[..., 1] - cy[..., 0]
+        by = cz[..., 0, :] * (1 - fx[..., None]) + cz[..., 1, :] * fx[..., None]
+        gy = by[..., 1] - by[..., 0]
+        bz0 = c[..., 0, 0, :] * (1 - fy[..., None]) + c[..., 0, 1, :] * fy[..., None]
+        bz1 = c[..., 1, 0, :] * (1 - fy[..., None]) + c[..., 1, 1, :] * fy[..., None]
+        bz = bz0 * (1 - fx[..., None]) + bz1 * fx[..., None]
+        gz = bz[..., 1] - bz[..., 0]
+        grad = np.stack([gx, gy, gz], axis=-1)
+        return s * voxel_width, grad, inb & ok
 
 
 class CapacityWarning(UserWarning):
@@ -123,6 +260,10 @@ class VolumetricMapper:
         self._last_pvt = None
         self._fence_cache = None
         self.map_ct = 0
+        # replay: frames run inside planned runs and the scrolls among them
+        # (the rest went through the per-frame path)
+        self.replay_scanned_frames = 0
+        self.replay_scanned_scrolls = 0
         self.last_output: Optional[FrameOutput] = None
         self.mirror = None  # runtime.host_mirror.HostMirror, made on first use
         # streaming: device carry of unserved blocks, round-robin offset,
@@ -210,6 +351,23 @@ class VolumetricMapper:
         else:
             col_bound = ncols - int(np.maximum(cb[:2] - shift[:2], 0).prod())
         return next((s for s in (32, 64, 128) if col_bound <= s <= ncols), ncols)
+
+    def _scroll_compact_rows(self, origin_blk, prev):
+        """(rows, cols) of a scroll, as the JAX package buckets them: rows
+        upper-bounds the blocks that exit or enter, NB - prod(cb - |shift|),
+        rounded up to 256 / 1024 / 2048; a larger scroll gets (NB, NCOLS)
+        when NB <= 8192, else (None, None).  The port's scroll sizes its
+        buffers by `cols` alone; the replay planner breaks a run where rows
+        is None or NB (a teleport-scale scroll), as the JAX planner does."""
+        shift = np.abs(np.asarray(origin_blk, np.int64) - np.asarray(prev, np.int64))
+        cb = np.asarray(self.cfg.canvas_blocks, np.int64)
+        nb = int(cb.prod())
+        cols = self._scroll_compact_cols(origin_blk, prev)
+        bound = nb - int(np.maximum(cb - shift, 0).prod())
+        rows = next((s for s in (256, 1024, 2048) if bound <= s <= nb), None)
+        if rows is None and nb <= 8192:
+            return nb, int(cb[0] * cb[1])
+        return rows, (cols if rows is not None else None)
 
     def _run(self, inst_type, ray_count, pvt, origin_blk, off, *,
              input_pointcloud, t_sensor0):
@@ -420,47 +578,237 @@ class VolumetricMapper:
         beams at theta_min + i * theta_inc in the sensor's z = 0 plane (a
         numpy array or a tensor)."""
         t0 = time.perf_counter()
-        cfg, dev = self.cfg, self.device
         proj = self._sensor_proj(proj)
         origin = proj.trans.cpu().numpy().astype(np.float32)
         pvt, origin_blk, off = self._frame_geometry(origin)
-        # the pose in float32, as the JAX package packs it into its frame
-        # upload (hokuyo_update rounds the angles to float32 too)
-        pose = geo.Projection(proj.rot.to(device=dev, dtype=torch.float32),
-                              torch.from_numpy(origin).to(dev))
-        param = ScanParam(theta_min=float(theta_min),
-                          theta_inc=float(theta_inc),
-                          ranges=torch.as_tensor(ranges,
-                                                 dtype=torch.float32).to(dev))
-        inst = hokuyo_update(
-            pose, param, pvt, local_size=cfg.local_size,
-            voxel_width=cfg.voxel_width, ogm_min_h=cfg.ogm_min_h,
-            ogm_max_h=cfg.ogm_max_h,
-            for_motion_planner=cfg.for_motion_planner,
-            robot_r2_grids=cfg.robot_r2_grids)
-        counts = torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+        # the pose and angles in float32, as the JAX package packs them
+        # into its frame upload
+        inst, counts = scan_sensor(
+            torch.as_tensor(ranges, dtype=torch.float32).to(self.device),
+            proj.rot.cpu().numpy(), origin, theta_min, theta_inc, pvt,
+            cfg=self.cfg)
         return self._run(inst, counts, pvt, origin_blk, off,
                          input_pointcloud=False, t_sensor0=t0)
 
     def process_pointcloud(self, proj: geo.Projection, points_sensor,
                            valid=None):
         """Point-cloud frame: points_sensor [N, 3] float32 in the SENSOR
-        frame (a numpy array, or a tensor pair from stage_pointcloud)."""
+        frame (a numpy array, or a tensor pair from stage_pointcloud).  With
+        cfg.fuse_raycast the sensor->world transform rounds as the JAX
+        package's frame program rounds it (it moves there), else as its
+        eager transform."""
         t0 = time.perf_counter()
         proj = self._sensor_proj(proj)
-        cfg = self.cfg
         origin = proj.trans.cpu().numpy().astype(np.float32)
         pvt, origin_blk, off = self._frame_geometry(origin)
         if isinstance(points_sensor, torch.Tensor) and valid is not None:
             buf, vmask = points_sensor.to(self.device), valid.to(self.device)
         else:
             buf, vmask = self.stage_pointcloud(points_sensor, valid=valid)
-        world = proj.to(self.device).l2g(buf)
-        nt, np_ = rc.panorama_bins(cfg.local_size)
-        inst, counts = rc.pointcloud_project(
-            world, vmask, origin, pvt, local_size=cfg.local_size,
-            voxel_width=cfg.voxel_width, ogm_min_h=cfg.ogm_min_h,
-            ogm_max_h=cfg.ogm_max_h, for_motion_planner=cfg.for_motion_planner,
-            robot_r2_grids=cfg.robot_r2_grids, n_theta=nt, n_phi=np_)
+        inst, counts = pointcloud_sensor(
+            buf, vmask, proj.rot.cpu().numpy(), origin, pvt, cfg=self.cfg,
+            fused=self.cfg.fuse_raycast)
         return self._run(inst, counts, pvt, origin_blk, off,
                          input_pointcloud=True, t_sensor0=t0)
+
+    # -- batched replay (throughput mode) ------------------------------------
+    # the smallest compacted-scroll buckets; a canvas smaller than both
+    # scrolls any shift inside a run
+    REPLAY_ROWS, REPLAY_COLS = 256, 32
+
+    def stage_pointcloud_batch(self, clouds, pad_to=None):
+        """Upload K point clouds as stacked tensors ([K, N, 3] float32,
+        [K, N] bool) for process_pointcloud_batch; N is the batch's
+        live-point bucket (one for the whole batch), or `pad_to`."""
+        cfg = self.cfg
+        K = len(clouds)
+        sizes = [min(len(np.asarray(p)), cfg.max_raycast_points)
+                 for p in clouds]
+        cap = pad_to or self._pc_bucket(max(sizes, default=0),
+                                        cfg.max_raycast_points)
+        buf = np.zeros((K, cap, 3), np.float32)
+        vmask = np.zeros((K, cap), bool)
+        for i, pts in enumerate(clouds):
+            n = sizes[i]
+            buf[i, :n] = np.asarray(pts, np.float32)[:n]
+            vmask[i, :n] = True
+        return (torch.from_numpy(buf).to(self.device),
+                torch.from_numpy(vmask).to(self.device))
+
+    def process_pointcloud_batch(self, projs, points, valids, chunk: int = 10):
+        """Replay mode: K point-cloud frames whose poses are known ahead.
+        The host plans runs of up to `chunk` frames (scroll decisions and
+        their bounds, fence activation) and runs each through
+        pipeline.replay_frames, whose frames before the last build no
+        window outputs; frames no run can take (a fresh map, a
+        teleport-scale scroll, a fence flip, a tail shorter than every
+        rung of the ladder) go through process_pointcloud.  The state
+        evolves bit for bit as in the per-frame loop.  Streaming runs once
+        per run over the union of its changed blocks.
+
+        projs: K Projections; points [K, N, 3] float32 sensor-frame clouds
+        and valids [K, N] bool, tensors (see stage_pointcloud_batch) or
+        host arrays.  Requires
+        raycast_mode "projective" and fuse_raycast, as the JAX package
+        does.  Returns the last frame's FrameOutput; when that frame ran
+        in a run, `.per_frame` holds the run's scalars."""
+        cfg = self.cfg
+        if not (cfg.raycast_mode == "projective" and cfg.fuse_raycast):
+            raise ValueError(
+                "process_pointcloud_batch requires raycast_mode='projective' "
+                "and fuse_raycast (the in-scan sensor path)")
+        points = torch.as_tensor(points, dtype=torch.float32).to(self.device)
+        valids = torch.as_tensor(valids, dtype=torch.bool).to(self.device)
+        return self._process_batch(
+            projs, chunk=chunk, input_pointcloud=True, sensor_kind=None,
+            data={"points": points, "pts_valid": valids}, scalars=None,
+            fallback=lambda i: self.process_pointcloud(
+                projs[i], points[i], valids[i]))
+
+    def process_scan2d_batch(self, projs, ranges, theta_min, theta_inc,
+                             chunk: int = 10):
+        """Replay of 2-D LiDAR frames (see process_pointcloud_batch).
+        `ranges` is [K, n_beams]; theta_min and theta_inc are scalars or
+        [K] arrays, carried as float32."""
+        K = len(projs)
+        sc = self._sensor_scalars(K, [np.broadcast_to(theta_min, K),
+                                      np.broadcast_to(theta_inc, K)])
+        data = torch.as_tensor(ranges, dtype=torch.float32).to(self.device)
+        return self._process_batch(
+            projs, chunk=chunk, input_pointcloud=False, sensor_kind="scan",
+            data={"sensor_data": data}, scalars=sc,
+            fallback=lambda i: self.process_scan2d(
+                projs[i], data[i], float(sc[i, 0, 0]), float(sc[i, 0, 1])))
+
+    @staticmethod
+    def _sensor_scalars(K, row0, row1=()):
+        """[K, 2, 3] float32 per-frame sensor scalars (pose rows 7-8)."""
+        sc = np.zeros((K, 2, 3), np.float32)
+        for c, v in enumerate(row0):
+            sc[:, 0, c] = v
+        for c, v in enumerate(row1):
+            sc[:, 1, c] = v
+        return sc
+
+    def _fence_key(self, pvt):
+        """Fence-box activation at a window pivot: a run holds one, so runs
+        break where the per-frame path would see it change."""
+        win_ll = pvt.astype(np.float32) * self.cfg.voxel_width
+        win_ur = win_ll + np.asarray(self.cfg.local_size_m, np.float32)
+        return self.ext_obs.activate(win_ll, win_ur).tobytes()
+
+    def _plan_run(self, projs, i, chunk, use_compact):
+        """Up to `chunk` frames from frame i that one run can take: [(pvt,
+        origin_blk, off, scrolled, frame index, compact cols)].  Walks the
+        canvas origin and the motion anchor ahead without moving either."""
+        cfg = self.cfg
+        nb = int(np.prod(cfg.canvas_blocks))
+        prev = None if self._origin is None else self._origin.copy()
+        prev_pvt = self._last_pvt
+        plan, fkey0 = [], None
+        for j in range(i, min(i + chunk, len(projs))):
+            trans = projs[j].trans.cpu().numpy().astype(np.float32)
+            pvt, origin_blk, off = self._frame_geometry(
+                trans, origin=prev,
+                motion=(None if prev_pvt is None else
+                        geo.calculate_pivot(trans, cfg.voxel_width,
+                                            cfg.local_size) - prev_pvt))
+            prev_pvt = pvt.copy()
+            scroll = prev is None or not np.array_equal(prev, origin_blk)
+            cols = None
+            if scroll:
+                if prev is None:
+                    break  # a fresh map: the per-frame path places it
+                rows, cols = self._scroll_compact_rows(origin_blk, prev)
+                if use_compact and (rows is None or rows >= nb):
+                    break  # teleport-scale: the per-frame path
+                if not use_compact:
+                    cols = None  # every column
+            fkey = self._fence_key(pvt)
+            if fkey0 is None:
+                fkey0 = fkey
+            elif fkey != fkey0:
+                break  # the fence activation flips
+            plan.append((pvt, origin_blk, off, scroll, j, cols))
+            if scroll:
+                prev = origin_blk.copy()
+        return plan
+
+    def _process_batch(self, projs, *, chunk, input_pointcloud, sensor_kind,
+                       data, scalars, fallback):
+        """The replay driver of both sensors: plans a run, runs the longest
+        rung of the ladder {chunk, chunk/2, chunk/4, 5, 2} that the plan
+        covers through pipeline.replay_frames, or one frame through
+        `fallback(i)` when no rung fits, and repeats."""
+        cfg = self.cfg
+        projs = [self._sensor_proj(p) for p in projs]
+        K = len(projs)
+        cb = np.asarray(cfg.canvas_blocks, np.int64)
+        # a canvas smaller than the minimum buckets scrolls any shift
+        # inside a run (every column moves)
+        use_compact = (int(cb.prod()) >= self.REPLAY_ROWS
+                       and int(cb[0] * cb[1]) >= self.REPLAY_COLS)
+        ladder = sorted({chunk, max(chunk // 2, 2), max(chunk // 4, 2), 5, 2},
+                        reverse=True)
+        ladder = [L for L in ladder if L <= max(chunk, 2)]
+        result = None
+        i = 0
+        while i < K:
+            plan = self._plan_run(projs, i, chunk, use_compact)
+            run_len = next((L for L in ladder if len(plan) >= L), 0)
+            if run_len == 0:
+                result = fallback(i)
+                i += 1
+                continue
+            plan = plan[:run_len]
+            t0 = time.perf_counter()
+            n = len(plan)
+            pose_h = np.zeros((n, 9, 3), np.float32)
+            scrolled = np.zeros(n, bool)
+            for k, (pvt, origin_blk, off, scr, idx, _) in enumerate(plan):
+                pose_h[k, 0], pose_h[k, 1], pose_h[k, 2] = pvt, origin_blk, off
+                pose_h[k, 3:6] = projs[idx].rot.cpu().numpy()
+                pose_h[k, 6] = projs[idx].trans.cpu().numpy()
+                if scalars is not None:
+                    pose_h[k, 7:9] = scalars[idx]
+                scrolled[k] = scr
+            fence, fence_on = self._fence_args(plan[0][0])
+            start_origin = self._origin.copy()
+            if sensor_kind is None:
+                frames = {"points": data["points"][i:i + n],
+                          "pts_valid": data["pts_valid"][i:i + n]}
+            else:
+                frames = {"sensor_data": data["sensor_data"][i:i + n],
+                          "sensor_kind": sensor_kind}
+            self.state, out, changed_union, per_frame = replay_frames(
+                self.state, pose_h, scrolled, fence, cfg=cfg,
+                origin_blk=start_origin, input_pointcloud=input_pointcloud,
+                use_fence=fence_on, compact_cols=[c for *_, c in plan],
+                has_scrolls=bool(scrolled.any()), **frames)
+            last = plan[-1]
+            self._origin = np.asarray(last[1]).copy()
+            self._last_pvt = np.asarray(last[0]).copy()  # motion-bias anchor
+            self.map_ct += n
+            self.replay_scanned_frames += n
+            self.replay_scanned_scrolls += int(scrolled.sum())
+            result = FrameOutput(
+                out, origin=last[0].astype(np.float32) * cfg.voxel_width,
+                pvt=last[0])
+            result.per_frame = per_frame
+            result.edt_time_ms = (time.perf_counter() - t0) * 1e3 / n
+            self.last_output = result
+            if cfg.display_glb_edt or cfg.display_glb_ogm:
+                # once per run, whatever vis_interval says
+                if self._stream_carry is not None:
+                    self._stream_carry = shift_block_mask(
+                        self._stream_carry,
+                        self._origin.astype(np.int64) - start_origin)
+                self._stream({"changed_blk": changed_union}, self._origin)
+            # arch_dropped is cumulative (the last frame covers the run);
+            # the sweep cap is checked on the run's largest sweep count
+            self._queue_capacity_guard(
+                per_frame["arch_dropped"][-1],
+                int(per_frame["relax_iters"].max())
+                if cfg.merge_mode == "relax" else None)
+            i += n
+        return result

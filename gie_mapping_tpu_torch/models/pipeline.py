@@ -1,7 +1,9 @@
 """The per-frame map update of the PyTorch port.
 
-Counterpart of gie_mapping_tpu/models/pipeline.py: the host-gated canvas
-scroll (`scroll_step`, the scroll half of scroll_frame_step), block
+Counterpart of gie_mapping_tpu/models/pipeline.py: the frames' sensor
+models (`pointcloud_sensor`, `scan_sensor`), the host-gated canvas
+scroll (`scroll_step`, the scroll half of scroll_frame_step), the replay
+of a planned run of frames (`replay_frames`), block
 allocation, occupancy fusion, the change-gated exact canvas EDT
 (`_gated_canvas_merge`, with its slab menu, block P-test, phase-1 cache and
 zero-site constant fill), the ungated full EDT below `edt_gate_min_vox`, the relax engine
@@ -26,22 +28,28 @@ import time
 import numpy as np
 import torch
 
-from ..map_state import COC_INVALID16, MapState, scroll_canvas
+from ..map_state import (COC_INVALID16, MapState, scroll_canvas,
+                         shift_block_mask)
+from ..ops import raycast as rc
 from ..ops.edt_batch import batch_edt, batch_edt_slab
 from ..ops.fusion import _fence_mask, _lowpass
 from ..ops.kernels.envelope import ENVELOPE_MID_MAX_N, ENVELOPE_PACKED_MAX_N
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
+from ..ops.scan_sensors import ScanParam, hokuyo_update
 from ..ops.wave import (invalidate_disappeared, mark_frontiers,
                         reconcile_window, relax_fixed_point)
 from ..utils import constants as _c
 from ..utils import geometry as geo
 from ..utils.config import MapConfig
-from ..utils.floats import sqrt_f32, true_div
+from ..utils.floats import div_const, sqrt_f32
 from ..utils.constants import (EMPTY_VALUE, VB_WIDTH, VOX_FNT, VOX_FREE,
                                VOX_OCCUPIED, VOX_UNKNOWN)
 
 DEFAULT_MENU_FRACS = ((3, 16), (5, 16), (3, 8), (5, 8))
 INV16 = int(COC_INVALID16)
+# the per-frame scalars every merge_frame returns (the replay's per_frame)
+SCALAR_OUTPUTS = ("relax_iters", "fnt_count", "arch_dropped", "gate_level",
+                  "gate_slab_vox")
 
 
 def _slab_menu(canvas_size, fracs=DEFAULT_MENU_FRACS):
@@ -313,14 +321,18 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
 
 def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
                 win_off, fence, *, cfg: MapConfig, input_pointcloud: bool,
-                use_fence: bool = True, enter_shift=None):
+                use_fence: bool = True, enter_shift=None,
+                emit_outputs: bool = True):
     """Fuse one local observation into the global map and refresh the EDT
-    (the JAX package's merge_frame_impl with do_scroll=False, canvas_edt).
+    (the JAX package's merge_frame_impl with do_scroll=False).
 
     inst_type int8 / ray_count int32 [X, Y, Z] window tensors on the state's
     device; pvt, canvas_origin_blk, win_off host int triples; fence =
     (ll, ur, active, n) tensors; enter_shift: this frame's canvas move in
-    voxels (host ints) or None.  Returns (state', outputs dict)."""
+    voxels (host ints) or None.  Returns (state', outputs dict).  With
+    emit_outputs=False the outputs are only changed_blk and the scalars of
+    SCALAR_OUTPUTS: the window tensors (edt, glb_type, dist_sq, coc,
+    ogm_changed) are not built, and the state is the same."""
     local_size = cfg.local_size
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
@@ -328,9 +340,6 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     dev = state.vox_type.device
     off = [int(v) for v in win_off]
     wb = _box(off, local_size)
-    canvas_origin_vox = torch.tensor(
-        np.asarray(canvas_origin_blk, np.int64) * VB_WIDTH, dtype=torch.int32,
-        device=dev)
 
     old_dist = state.dist_sq
     old_type = state.vox_type
@@ -367,7 +376,8 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     if input_pointcloud:
         hit = (ray_count > 0) | occ_flag
         miss = (ray_count < 0) & ~hit
-        pbty = torch.clamp(true_div((-ray_count).to(torch.float32), 10.0),
+        # / 10.0 in a jitted program: a multiply by float32(0.1)
+        pbty = torch.clamp(div_const((-ray_count).to(torch.float32), 10.0),
                            max=1.0)
         occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
                                  1.0, cfg.occupancy_threshold)
@@ -386,7 +396,6 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
                                old_type_win)
     glb_type = torch.where(present_vox_win, new_type_win,
                            VOX_UNKNOWN).to(torch.int8)
-    ogm_changed = present_vox_win & (new_type_win != old_type_win)
     canvas_occ = state.occ_val.clone()
     canvas_occ[wb] = new_occ_win
     canvas_type = state.vox_type.clone()
@@ -439,7 +448,7 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         dist_win, coc_win = dist[wb].clone(), coc[wb].clone()
 
     # ---- frontiers -----------------------------------------------------------
-    glb_type_out, fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
+    fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
 
     pair_valid = dist_win != EMPTY_VALUE
     observed_win = glb_type != VOX_UNKNOWN
@@ -458,12 +467,6 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         final_dist, final_coc = dist, coc
         final_dist[wb] = torch.where(writeback, dist_win, old_dist_win)
         final_coc[wb] = torch.where(writeback[..., None], coc_win, old_coc_win)
-
-    edt = torch.where(
-        observed_win,
-        torch.where(pair_valid, sqrt_f32(dist_win.to(torch.float32)),
-                    float(cfg.max_loc_dist_sq)),
-        0.0)
 
     # ---- changed-block tracking --------------------------------------------
     occ_changed_win = new_occ_win != old_occ_win
@@ -495,9 +498,6 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg), device=dev),
     )
 
-    coc_glb_win = torch.where(
-        (observed_win & (coc_win[..., 0] != INV16))[..., None],
-        coc_win.to(torch.int32) + canvas_origin_vox, INV16)
     outputs = {
         "changed_blk": changed_blk,
         "relax_iters": relax_iters,
@@ -505,15 +505,28 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
         "fnt_count": fnt.sum(dtype=torch.int32),
         "gate_level": gate_level if gated else -1,
         "gate_slab_vox": slab_vox if gated else cs[0] * cs[1] * cs[2],
+    }
+    if not emit_outputs:
+        return state, outputs
+    canvas_origin_vox = torch.tensor(
+        np.asarray(canvas_origin_blk, np.int64) * VB_WIDTH, dtype=torch.int32,
+        device=dev)
+    outputs.update({
         # host ms spent in the gate's one readback (waiting for the device
         # to reach it included); 0.0 when the gate is off
         "gate_sync_ms": sync_ms if gated else 0.0,
-        "edt": edt,
-        "glb_type": glb_type_out,
+        "edt": torch.where(
+            observed_win,
+            torch.where(pair_valid, sqrt_f32(dist_win.to(torch.float32)),
+                        float(cfg.max_loc_dist_sq)),
+            0.0),
+        "glb_type": torch.where(fnt, VOX_FNT, glb_type).to(torch.int8),
         "dist_sq": torch.where(observed_win, dist_win, EMPTY_VALUE),
-        "coc": coc_glb_win,
-        "ogm_changed": ogm_changed,
-    }
+        "coc": torch.where(
+            (observed_win & (coc_win[..., 0] != INV16))[..., None],
+            coc_win.to(torch.int32) + canvas_origin_vox, INV16),
+        "ogm_changed": present_vox_win & (new_type_win != old_type_win),
+    })
     return state, outputs
 
 
@@ -531,3 +544,119 @@ def scroll_step(state: MapState, new_origin_blk, *, cfg: MapConfig,
     state = scroll_canvas(state, new, cfg, compact_cols=compact_cols,
                           old_origin_blk=old)
     return state, enter_shift
+
+
+def pointcloud_sensor(points, pts_valid, rot, origin, pvt, *, cfg: MapConfig,
+                      fused: bool):
+    """One frame's projective point-cloud model: the sensor->world transform
+    of points [N, 3] (sensor frame), then the panorama carve.  rot [3, 3]
+    and origin (3,) float32 (host numpy), pvt host ints.  `fused` rounds
+    the transform as the JAX package's jitted frame program does
+    (fuse_raycast), else as its eager l2g.  Returns (inst_type, ray_count)
+    window tensors."""
+    dev = points.device
+    proj = geo.Projection(torch.from_numpy(np.array(rot, np.float32)).to(dev),
+                          torch.from_numpy(np.array(origin, np.float32)).to(dev))
+    world = proj.l2g_fused(points) if fused else proj.l2g(points)
+    nt, np_ = rc.panorama_bins(cfg.local_size)
+    return rc.pointcloud_project(
+        world, pts_valid, np.asarray(origin, np.float32), pvt,
+        local_size=cfg.local_size, voxel_width=cfg.voxel_width,
+        ogm_min_h=cfg.ogm_min_h, ogm_max_h=cfg.ogm_max_h,
+        for_motion_planner=cfg.for_motion_planner,
+        robot_r2_grids=cfg.robot_r2_grids, n_theta=nt, n_phi=np_)
+
+
+def scan_sensor(ranges, rot, origin, theta_min, theta_inc, pvt, *,
+                cfg: MapConfig):
+    """One frame's 2-D LiDAR model: ranges [n_beams] float32 on the device,
+    rot/origin float32 (host numpy), the beam angles as float32 values (the
+    JAX package's packed pose rows), pvt host ints.  Returns (inst_type,
+    ray_count = zeros)."""
+    dev = ranges.device
+    pose = geo.Projection(torch.from_numpy(np.array(rot, np.float32)).to(dev),
+                          torch.from_numpy(np.array(origin, np.float32)).to(dev))
+    param = ScanParam(theta_min=float(np.float32(theta_min)),
+                      theta_inc=float(np.float32(theta_inc)), ranges=ranges)
+    inst = hokuyo_update(
+        pose, param, pvt, local_size=cfg.local_size,
+        voxel_width=cfg.voxel_width, ogm_min_h=cfg.ogm_min_h,
+        ogm_max_h=cfg.ogm_max_h, for_motion_planner=cfg.for_motion_planner,
+        robot_r2_grids=cfg.robot_r2_grids)
+    return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+
+
+def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
+                  origin_blk, input_pointcloud: bool, use_fence: bool = True,
+                  compact_cols=None, has_scrolls: bool = True, points=None,
+                  pts_valid=None, sensor_data=None, sensor_kind=None):
+    """A planned run of K frames (the JAX package's replay_frames and its
+    scan program, as a Python loop).
+
+    poses: float32 [K, 9, 3] host rows per frame, as the JAX package packs
+    them: pvt, canvas origin block and window offset (integers), the
+    sensor rotation, the sensor origin, then two rows of sensor scalars
+    (row 7: theta_min, theta_inc of the 2-D LiDAR).  scrolled: bool [K],
+    whether the frame's canvas origin differs from the previous frame's.
+    origin_blk: the canvas origin before the run (host ints).
+    compact_cols: each frame's column bucket for its scroll (a list of K;
+    None, or a None entry, moves every column).  The frames' data: points /
+    pts_valid [K, N, 3] / [K, N] (the point-cloud model, transformed as
+    fuse_raycast rounds it) or sensor_data [K, n_beams] with sensor_kind
+    "scan".
+
+    Every frame runs merge_frame with its enter_shift; only the last emits
+    its window outputs.  Returns (state', last outputs, changed_union
+    [bx, by, bz] — every frame's changed_blk ORed, the union moved with
+    each scroll — and per_frame: SCALAR_OUTPUTS as [K] int32 tensors on
+    the state's device).  has_scrolls=False requires scrolled[k] False for
+    every frame (ValueError otherwise), as the JAX package's guard does."""
+    poses = np.asarray(poses, np.float32)
+    scrolled = np.asarray(scrolled, bool)
+    if not has_scrolls and scrolled.any():
+        raise ValueError(
+            "replay_frames(has_scrolls=False) requires scrolled[k] == False "
+            "for every frame; got a scrolling frame. Pass has_scrolls=True "
+            "(or plan per-run like VolumetricMapper).")
+    n = len(poses)
+    if compact_cols is None:
+        compact_cols = [None] * n
+    dev = state.vox_type.device
+    prev = np.asarray(origin_blk, np.int64)
+    changed_union = torch.zeros(cfg.canvas_blocks, dtype=torch.bool, device=dev)
+    ys = {k: [] for k in SCALAR_OUTPUTS}
+    out = None
+    for k in range(n):
+        pvt, origin, off = (poses[k, r].astype(np.int32) for r in range(3))
+        enter_shift = None
+        if scrolled[k]:
+            state, enter_shift = scroll_step(
+                state, origin, cfg=cfg, compact_cols=compact_cols[k],
+                old_origin_blk=prev)
+            changed_union = shift_block_mask(changed_union,
+                                             origin.astype(np.int64) - prev)
+            prev = origin.astype(np.int64)
+        rot, sensor_origin = poses[k, 3:6], poses[k, 6]
+        if sensor_kind is None:
+            inst, cnt = pointcloud_sensor(points[k], pts_valid[k], rot,
+                                          sensor_origin, pvt, cfg=cfg,
+                                          fused=True)
+        elif sensor_kind == "scan":
+            inst, cnt = scan_sensor(sensor_data[k], rot, sensor_origin,
+                                    poses[k, 7, 0], poses[k, 7, 1], pvt,
+                                    cfg=cfg)
+        else:
+            raise KeyError(sensor_kind)
+        state, out = merge_frame(
+            state, inst, cnt, pvt, origin, off, fence, cfg=cfg,
+            input_pointcloud=input_pointcloud, use_fence=use_fence,
+            enter_shift=enter_shift, emit_outputs=k == n - 1)
+        changed_union = changed_union | out["changed_blk"]
+        for key in SCALAR_OUTPUTS:
+            ys[key].append(out[key])
+    per_frame = {
+        key: (torch.stack(v).to(torch.int32)
+              if isinstance(v[0], torch.Tensor)
+              else torch.tensor(v, dtype=torch.int32, device=dev))
+        for key, v in ys.items()}
+    return state, out, changed_union, per_frame

@@ -30,7 +30,7 @@ import numpy as np
 import torch
 
 from ...utils.constants import VOX_FREE, VOX_OCCUPIED, VOX_UNKNOWN
-from ...utils.floats import fma_f32, sqrt_f32
+from ...utils.floats import fma_f32, recip_f32, sqrt_f32
 from ...utils import geometry as geo
 from . import _build
 
@@ -232,7 +232,8 @@ def panorama(points, valid, origin, pvt, *, local_size, voxel_width,
 def _panorama_config(X, Y, Z, n_theta, n_phi, voxel_width, ogm_min_h,
                      ogm_max_h) -> bytes:
     k = carve_consts(n_theta, n_phi, (X, Y, Z), voxel_width)
-    return _PANORAMA_CONFIG.pack(X, Y, Z, voxel_width, ogm_min_h, ogm_max_h,
+    return _PANORAMA_CONFIG.pack(X, Y, Z, recip_f32(voxel_width), ogm_min_h,
+                                 ogm_max_h,
                                  k.big, n_theta, n_phi, k.pi, k.theta_scale,
                                  k.half_pi, k.phi_scale)
 

@@ -149,7 +149,8 @@ def mark_frontiers(canvas_vox_type, glb_type, win_off, local_size):
     (absent blocks and beyond-canvas count as unknown).
 
     Works on a window+1-halo slice clamped into the canvas.  win_off is a
-    host int triple.  Returns (glb_type with FNT marks int8, fnt bool)."""
+    host int triple.  Returns the frontier mask (bool, window shape); the
+    window's output type is torch.where(fnt, VOX_FNT, glb_type)."""
     cs = canvas_vox_type.shape
     ext = [min(l + 2, c) for l, c in zip(local_size, cs)]
     starts = [min(max(int(win_off[a]) - 1, 0), cs[a] - ext[a]) for a in range(3)]
@@ -165,5 +166,4 @@ def mark_frontiers(canvas_vox_type, glb_type, win_off, local_size):
         nbr |= _shift_fill(unknown, axis, sign, True)
     nbr_win = nbr[rel[0]:rel[0] + local_size[0], rel[1]:rel[1] + local_size[1],
                   rel[2]:rel[2] + local_size[2]]
-    fnt = (glb_type == VOX_FREE) & nbr_win
-    return torch.where(fnt, VOX_FNT, glb_type).to(torch.int8), fnt
+    return (glb_type == VOX_FREE) & nbr_win

@@ -231,6 +231,23 @@ def cow_lady_scroll():
         n_back=10, teleport_x=25.0, n_after=0)
 
 
+def cow_lady_bench():
+    """(MapConfig overrides, world, poses, n_online, chunk) of the headline
+    benchmark's replay (bench.py): the cow_lady preset with 131072 points
+    per frame, the sensor model in the frame program (fuse_raycast) and
+    streaming off; the slice's corridor world; a closed 40-pose circle of
+    radius 1.5 m at 1.2 m, its first 3 poses repeated in front.  The first
+    `n_online` frames go through process_pointcloud, the 40 after them
+    through one process_pointcloud_batch call with `chunk` = 40.  Frame i's
+    cloud is world.pointcloud(poses[i], n_rays=COW_SLICE_RAYS,
+    max_range=8.0, seed=i)."""
+    overrides = dict(max_raycast_points=COW_SLICE_RAYS, fuse_raycast=True,
+                     display_glb_edt=False, display_glb_ogm=False)
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
+    loop = circular_trajectory(n_frames=40, radius=1.5, height=1.2, closed=True)
+    return overrides, world, loop[:3] + loop, 3, 40
+
+
 # A Hokuyo UTM-30LX, from its data sheet: 1,081 beams over 270 degrees
 # (0.25 degrees apart), 30 m range
 HOKUYO_BEAMS = 1081

@@ -45,6 +45,7 @@ PORTED_VALUES = {
     "edt_gate_pmode": "block",
     "merge_mode": ("canvas_edt", "relax"),
     "raycast_mode": "projective",
+    "fuse_raycast": (False, True),
     "profile_loc_rms": False,
     "profile_glb_rms": False,
 }
@@ -117,8 +118,10 @@ class MapConfig:
     max_raycast_points: int = 65536  # static per-frame point-cloud capacity
     # "projective" = dense spherical min-range carve; "dda" = exact per-ray walk
     raycast_mode: str = "projective"
-    # run the projective raycast inside the frame program (JAX dispatch
-    # detail; the port runs eagerly either way)
+    # run the projective raycast inside the frame program (a JAX dispatch
+    # detail, but it moves the sensor->world transform's rounding: the port
+    # rounds as that program does when it is on, and the replay mapper
+    # requires it)
     fuse_raycast: bool = False
     # "canvas_edt" = one exact separable EDT over the canvas per frame;
     # "relax" = the iterative wavefront engine

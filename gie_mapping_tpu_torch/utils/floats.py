@@ -3,22 +3,35 @@ rounds it, on every device.
 
 Three PyTorch defaults would otherwise move results by an ulp, and an ulp
 moves a voxel across a panorama bin edge:
-  * CUDA divides by a Python scalar as a multiply by its reciprocal;
+  * CUDA divides by a Python scalar as a multiply by its reciprocal (so a
+    constant's reciprocal is rounded here, on the host);
   * the vectorised CPU float32 sqrt is off by one ulp for ~0.6 % of inputs,
     and the float64 one is not always correctly rounded either;
   * XLA contracts some multiply-adds into fused multiply-adds, which
     PyTorch has no operator for.
+And one XLA rewrite must be copied: inside a jitted program XLA turns a
+division by a compile-time constant into a multiply by the constant's
+float32 reciprocal (`div_const`); a division by a traced value stays an
+IEEE division.
 """
 from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
 
 
-def true_div(a: torch.Tensor, d: float) -> torch.Tensor:
-    """a / d as an IEEE division (the divisor is a tensor on a's device)."""
-    return a / torch.tensor(d, dtype=a.dtype, device=a.device)
+def recip_f32(d: float) -> float:
+    """The float32 reciprocal 1 / float32(d), correctly rounded, as a
+    Python float (exact in float32)."""
+    return float(np.float32(1) / np.float32(d))
+
+
+def div_const(a: torch.Tensor, d: float) -> torch.Tensor:
+    """a / d as XLA's jitted code computes a division by a constant: a
+    times the float32 reciprocal of d (the multiply on a's device)."""
+    return a * torch.tensor(recip_f32(d), dtype=a.dtype, device=a.device)
 
 
 def sqrt_f32(a: torch.Tensor) -> torch.Tensor:

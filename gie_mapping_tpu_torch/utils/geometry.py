@@ -15,7 +15,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .floats import fma_f32, true_div
+from .floats import fma_f32, recip_f32
 
 
 def quat_to_rot(qw, qx, qy, qz):
@@ -54,6 +54,18 @@ class Projection:
         zz = fma_f32(z, r[2, 2], fma_f32(y, r[2, 1], x * r[2, 0]))
         return torch.cat([xy, zz], dim=1) + self.trans.to(pts.device)
 
+    def l2g_fused(self, pts: torch.Tensor) -> torch.Tensor:
+        """pts @ rot.T + trans, rounded as the JAX package's jitted frame
+        program rounds it when the transform runs inside it (fuse_raycast:
+        frame_step, scroll_frame_step and the replay scan body): every
+        output column fma(z, r[:, 2], fma(y, r[:, 1], x * r[:, 0])), fused
+        in all three columns whatever the point count, then one unfused add
+        of trans."""
+        r = self.rot.to(pts.device)
+        x, y, z = pts[:, 0:1], pts[:, 1:2], pts[:, 2:3]
+        return (fma_f32(z, r[:, 2], fma_f32(y, r[:, 1], x * r[:, 0]))
+                + self.trans.to(pts.device))
+
     def to_local(self, rel: torch.Tensor) -> torch.Tensor:
         """Sensor-frame coordinates of world offsets rel = p - trans
         ([..., 3], rounded by the caller): rel @ rot, rounded as XLA's CPU
@@ -84,8 +96,12 @@ class Projection:
 
 
 def pos2coord(p: torch.Tensor, voxel_width: float) -> torch.Tensor:
-    """Metres -> global voxel coordinate; floor(p/width + 0.5)."""
-    return torch.floor(true_div(p, voxel_width) + 0.5).to(torch.int32)
+    """Metres -> global voxel coordinate; floor(p/width + 0.5), rounded as
+    the JAX package's jitted programs round it: XLA folds the division by
+    the constant width into a multiply by its float32 reciprocal and fuses
+    that with the + 0.5, so floor(fma(p, 1/width, 0.5))."""
+    inv = torch.full_like(p, recip_f32(voxel_width))
+    return torch.floor(fma_f32(p, inv, torch.full_like(p, 0.5))).to(torch.int32)
 
 
 def coord2pos(c: torch.Tensor, voxel_width: float) -> torch.Tensor:

@@ -3,7 +3,7 @@ through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
 these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
-        [--only slice|scroll|scan2d|flat]
+        [--only slice|scroll|scan2d|flat|replay]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -38,6 +38,21 @@ of the window outputs; then the final state sha256.  The script asserts:
 for scan2d at least 3 scrolls and gate levels that include a slab level and
 the full level; for flat relax_iters > 0 on every frame and a scroll; for
 both, occupied voxels on every frame after the first and no archive drop.
+
+tests/fixtures/torch_port_replay_ref.npz, the replay mapper
+(process_pointcloud_batch), in about ten minutes.  `bench_*`: bench.py's
+own run (datasets.cow_lady_bench: fuse_raycast on, 3 frames through
+process_pointcloud, then the 40-frame closed circle in one call with
+chunk 40); `scroll_*`: the scroll path's 26 poses with fuse_raycast on,
+streaming on, in one call with chunk 10.  Each holds the sha256 of the
+final state, of the last FrameOutput's window outputs and of its
+cost_map_msg payload8, every run's per_frame scalars and length, map_ct, the
+canvas origin and the replay counters (scanned frames and scrolls); the
+bench part also the window-output sha256 of its 3 online frames, the
+scroll part the host mirror's digest after flush_stream.  The script
+asserts: the bench batch runs as one scanned run of 40 frames; the scroll
+replay scans runs with scrolls, falls back around the teleport, and drops
+nothing from the archive.
 """
 from __future__ import annotations
 
@@ -54,6 +69,8 @@ OUT = os.path.join(HERE, "torch_port_cow_ref.npz")
 OUT_SCROLL = os.path.join(HERE, "torch_port_cow_scroll_ref.npz")
 OUT_SCAN2D = os.path.join(HERE, "torch_port_scan2d_ref.npz")
 OUT_FLAT = os.path.join(HERE, "torch_port_scan2d_flat_ref.npz")
+OUT_REPLAY = os.path.join(HERE, "torch_port_replay_ref.npz")
+SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine
 FLAT = dict(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
@@ -215,9 +232,106 @@ def run_scan(path, overrides, poses, flat):
     print("written:", path, os.path.getsize(path), "bytes")
 
 
+def _last(prefix, mapper, out, cfg, runs):
+    """The replay's end under `prefix`: state, last FrameOutput, counters,
+    and `runs`, the per_frame scalars of every run (concatenated, with the
+    run lengths)."""
+    import hashlib
+
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+
+    msg = out.cost_map_msg(cfg.voxel_width)
+    rec = {
+        "state_sha": state_digest(_state(mapper)),
+        "out_sha": output_digest(out.glb_type, out.dist_sq, out.coc),
+        "payload8_sha": hashlib.sha256(msg["payload8"]).hexdigest(),
+        "map_ct": mapper.map_ct, "origin": np.asarray(mapper._origin, np.int32),
+        "scanned_frames": mapper.replay_scanned_frames,
+        "scanned_scrolls": mapper.replay_scanned_scrolls,
+        "run_lengths": [len(r["gate_level"]) for r in runs]}
+    for k in runs[0]:
+        rec["pf_" + k] = np.concatenate([np.asarray(r[k]) for r in runs])
+    print(prefix, {k: (v if np.ndim(v) == 0 else np.asarray(v).tolist())
+                   for k, v in rec.items()}, flush=True)
+    return {f"{prefix}_{k}": np.asarray(v) for k, v in rec.items()}
+
+
+def _recording_runs():
+    """Make the JAX pipeline's replay_frames append each run's per_frame
+    (as numpy) to the returned list."""
+    from gie_mapping_tpu.models import pipeline
+
+    runs, orig = [], pipeline.replay_frames
+
+    def recorded(*args, **kw):
+        res = orig(*args, **kw)
+        runs.append({k: np.asarray(v) for k, v in res[3].items()})
+        return res
+
+    pipeline.replay_frames = recorded
+    return runs
+
+
+def run_replay(path):
+    """bench.py's replay and the scroll path's replay through the JAX
+    package's process_pointcloud_batch; writes `path`."""
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils.config import cow_lady_config
+    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_bench,
+                                                        cow_lady_scroll)
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
+
+    t0 = time.time()
+    runs = _recording_runs()
+    overrides, world, poses, n_online, chunk = cow_lady_bench()
+    projs = [geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+             for p in poses]
+    clouds = [world.pointcloud(p, n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(projs)]
+    cfg = cow_lady_config(**overrides)
+    mapper = VolumetricMapper(cfg)
+    pts, val = mapper.stage_pointcloud_batch(clouds)
+    online = []
+    for i in range(n_online):
+        out = mapper.process_pointcloud(projs[i], pts[i], val[i]).fetch()
+        online.append(output_digest(out.glb_type, out.dist_sq, out.coc))
+    out = mapper.process_pointcloud_batch(
+        projs[n_online:], pts[n_online:], val[n_online:], chunk=chunk).fetch()
+    arrays = _last("bench", mapper, out, cfg, runs)
+    arrays["bench_online_out_sha"] = np.asarray(online)
+    assert mapper.replay_scanned_frames == len(projs) - n_online == chunk
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    print(f"bench replay: {time.time() - t0:.1f} s", flush=True)
+
+    overrides, world, poses = cow_lady_scroll()
+    cfg = cow_lady_config(**overrides, fuse_raycast=True)
+    projs = [geo.Projection.from_pose(*p) for p in poses]
+    clouds = [world.pointcloud(p, n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(projs)]
+    mapper = VolumetricMapper(cfg)
+    pts, val = mapper.stage_pointcloud_batch(clouds)
+    runs.clear()
+    out = mapper.process_pointcloud_batch(projs, pts, val,
+                                          chunk=SCROLL_CHUNK).fetch()
+    mapper.flush_stream()
+    mapper.check_capacity()
+    arrays.update(_last("scroll", mapper, out, cfg, runs))
+    arrays["scroll_mirror_sha"] = np.asarray(mirror_digest(mapper.mirror.blocks))
+    assert mapper.replay_scanned_scrolls >= 3, mapper.replay_scanned_scrolls
+    assert 0 < mapper.replay_scanned_frames < len(projs)
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser()
-    ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat"))
+    ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
+                                       "replay"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
@@ -236,6 +350,8 @@ def main():
         run_scan(OUT_SCAN2D, {}, scan2d_path(), flat=False)
     if args.only in (None, "flat"):
         run_scan(OUT_FLAT, FLAT, scan2d_flat_path(), flat=True)
+    if args.only in (None, "replay"):
+        run_replay(OUT_REPLAY)
 
 
 if __name__ == "__main__":

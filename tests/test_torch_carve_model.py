@@ -224,7 +224,7 @@ def panorama_model(case):
     cnt = np.zeros(nt * np_, np.int32)
     np.add.at(cnt, b, 1)
     w = F(case["voxel_width"])
-    loc = np.floor(p / w + F(0.5)).astype(np.int32) - case["pvt"]
+    loc = np.floor(_fma(p, F(1) / w, F(0.5))).astype(np.int32) - case["pvt"]
     reg = ((p[:, 2] >= F(case["ogm_min_h"])) & (p[:, 2] <= F(case["ogm_max_h"]))
            & (loc >= 0).all(1) & (loc < np.asarray([X, Y, Z])).all(1))
     ep = np.zeros(X * Y * Z, np.int32)

@@ -407,3 +407,69 @@ def test_do_scroll_on_gpu_matches_cpu(dev):
         ta, tb = ms.state_to_numpy(a), ms.state_to_numpy(b)
         for k in ms.FIELDS:
             np.testing.assert_array_equal(tb[k], ta[k], err_msg=k)
+
+
+def test_l2g_fused_on_gpu_matches_cpu(dev):
+    """The fuse_raycast transform on the card equals its CPU form bit for
+    bit at 131,072 points (fma_f32 runs in float64 on either device)."""
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    rng = np.random.default_rng(9)
+    pts = torch.from_numpy((rng.normal(size=(131072, 3)) * 4).astype(np.float32))
+    proj = geo.Projection.from_pose(np.asarray([0.3, -1.2, 1.1], np.float32),
+                                    (0.9, 0.1, -0.2, 0.35))
+    want = proj.l2g_fused(pts)
+    got = proj.to(dev).l2g_fused(pts.to(dev))
+    assert torch.equal(got.cpu().view(torch.int32), want.view(torch.int32))
+
+
+def _replay_frames(n, teleport):
+    """Poses and clouds of a small replay: a line of steps (scrolls), or a
+    jitter about one spot (no scroll)."""
+    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    world = BoxWorld.corridor(seed=3, n_pillars=5, extent=3.0, height=2.0)
+    eye = torch.eye(3)
+    if teleport:
+        xyz = [(-1.8 + 0.5 * i, 0.15 * i, 0.9) for i in range(n)]
+    else:
+        xyz = [(0.03 * (i % 3), 0.02 * (i % 2), 0.9) for i in range(n)]
+    poses = [geo.Projection(eye, torch.tensor(p, dtype=torch.float32))
+             for p in xyz]
+    clouds = [world.pointcloud(p, n_rays=4096, max_range=6.0, seed=i)
+              for i, p in enumerate(poses)]
+    return poses, clouds
+
+
+@pytest.mark.parametrize("scrolls", [True, False])
+def test_replay_on_gpu_matches_cpu(dev, scrolls):
+    """process_pointcloud_batch on the card against the port on the CPU:
+    every MapState field, the last outputs, per_frame and the counters,
+    with and without scrolls in the runs."""
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    cfg = cow_lady_config(voxel_width=0.2, local_size_m=(9.6, 9.6, 1.6),
+                          cutoff_dist=1.0, max_blocks=2048,
+                          max_raycast_points=4096, fuse_raycast=True,
+                          edt_gate_min_vox=0, display_glb_edt=False,
+                          display_glb_ogm=False)
+    poses, clouds = _replay_frames(9, scrolls)  # a 2-run comes last
+    res = []
+    for d in ("cpu", dev):
+        m = VolumetricMapper(cfg, device=d)
+        pts, val = m.stage_pointcloud_batch(clouds)
+        out = m.process_pointcloud_batch(poses, pts, val, chunk=3).fetch()
+        res.append((m, out))
+    (a, oa), (b, ob) = res
+    sa, sb = ms.state_to_numpy(a.state), ms.state_to_numpy(b.state)
+    for k in ms.FIELDS:
+        np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+    for k in ("edt", "dist_sq", "coc", "glb_type", "changed_blk"):
+        np.testing.assert_array_equal(getattr(ob, k), getattr(oa, k), err_msg=k)
+    for k, v in oa.per_frame.items():
+        assert torch.equal(ob.per_frame[k].cpu(), v), k
+    assert (b.map_ct, b.replay_scanned_frames, b.replay_scanned_scrolls) == \
+        (a.map_ct, a.replay_scanned_frames, a.replay_scanned_scrolls)
+    assert (b.replay_scanned_scrolls > 0) == scrolls
+    np.testing.assert_array_equal(b._origin, a._origin)

@@ -216,3 +216,51 @@ def test_carve_lookup_matches_panorama_select():
                                     pallas=False, **kw)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+
+
+@pytest.mark.parametrize("name", ["edges_40", "cloud_40", "ugv_200"])
+def test_panorama_endpoints_match_jax_jit(name):
+    """The endpoint voxel rounds as the JAX package's jitted sensor model
+    rounds it: XLA folds p / voxel_width (a compile-time constant there)
+    into a multiply by the float32 reciprocal and contracts it with the
+    + 0.5, floor(fma(p, 1/w, 0.5)); an IEEE division differs on voxel
+    faces (the edges case holds 1,000 of them)."""
+    from test_torch_carve_cases import points
+
+    c = points(name)
+    kw = dict(local_size=c["local_size"], voxel_width=c["voxel_width"],
+              ogm_min_h=c["ogm_min_h"], ogm_max_h=c["ogm_max_h"],
+              n_theta=c["n_theta"], n_phi=c["n_phi"])
+    ji, jc = jrc.pointcloud_project(
+        jnp.asarray(c["points"]), jnp.asarray(c["valid"]),
+        jnp.asarray(c["origin"]), jnp.asarray(c["pvt"]), pallas=False,
+        for_motion_planner=False, robot_r2_grids=16, **kw)
+    ti, tc = trc.pointcloud_project(T(c["points"]), T(c["valid"]), c["origin"],
+                                    c["pvt"], for_motion_planner=False,
+                                    robot_r2_grids=16, **kw)
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc))
+    # the rule matters here: an IEEE division moves some faces' points
+    w = np.float32(c["voxel_width"])
+    p = c["points"]
+    ieee = np.floor(p / w + np.float32(0.5))
+    folded = np.asarray(jax.jit(lambda q: jgeo.pos2coord(q, c["voxel_width"]))(p))
+    np.testing.assert_array_equal(tgeo.pos2coord(T(p), c["voxel_width"]).numpy(),
+                                  folded)
+    if name == "edges_40":
+        assert (ieee != folded).any()
+
+
+def test_division_by_a_constant_matches_xla_folding():
+    """pipeline.merge_frame's free-ray probability, min(1, -count / 10):
+    inside the JAX frame program XLA multiplies by float32(0.1) instead of
+    dividing (9 rays give 0.90000004, not 0.9), and the port does the
+    same."""
+    from gie_mapping_tpu_torch.utils.floats import div_const
+
+    counts = np.arange(-40, 1, dtype=np.int32)
+    want = np.asarray(jax.jit(lambda rc: jnp.minimum(
+        1.0, (-rc).astype(jnp.float32) / 10.0))(counts))
+    got = torch.clamp(div_const((-T(counts)).float(), 10.0), max=1.0).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert want[counts == -9][0] == np.float32(0.9) + np.spacing(np.float32(0.9))
