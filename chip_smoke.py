@@ -76,9 +76,43 @@ Phases, one JSON line each; any failure exits non-zero:
                 part's final canvas EDT must equal scipy's.  Prints online
                 and replay ms per frame (CUDA events over each call; the
                 replay timed again over a second pass, as bench.py does).
-  9. profile  - only with --profile: torch.profiler over a second run of
-                each path of phases 4-7, and over bench.py's 40 frames
-                after its 3 online ones, online and replayed.
+  9. depthcam - the depth camera (process_depth, process_depth_batch) at
+                bench_suite.py's settings (datasets.depthcam_bench: the
+                depthcam preset, 240x240x168 canvas with one slack block,
+                streaming off, 96x128 depth images): 2 frames online, then
+                the closed 40-pose circle in one batch call with chunk 40;
+                then the same 42 frames through process_depth on a fresh
+                mapper.  The replay must equal the JAX package's
+                (tests/fixtures/torch_port_depthcam_ref.npz: the 2 online
+                frames' outputs, final state, last outputs, payload8,
+                every run's per_frame, counters) and the per-frame run
+                (state, last outputs); the final canvas EDT must equal
+                scipy's; the path must scroll, and phases 1-3 and the five
+                scroll kernels must launch.  Prints online and replay ms
+                per frame (the replay timed again over a second pass).
+ 10. laser3D  - the same for the 16-ring LiDAR (process_multiscan,
+                process_multiscan_batch) at the laser3D preset's own
+                defaults (datasets.laser3d_bench: 112x112x40 canvas,
+                fast_mode, streaming on), also the host mirror's digest
+                (tests/fixtures/torch_port_laser3d_ref.npz).
+ 11. dda      - the exact ray cast (raycast_mode "dda") at the
+                uav_raycast_fine preset (datasets.dda_path: 80x80x40
+                canvas, streaming on, 16384 points): 12 frames through
+                process_pointcloud, each frame's outputs, origins, the
+                final state and the host mirror against
+                tests/fixtures/torch_port_dda_ref.npz; every valid voxel's
+                dist_sq against its coc and scipy in the last window.
+ 12. profile  - only with --profile: torch.profiler over a second run of
+                each path of phases 4-7, over bench.py's 40 frames after
+                its 3 online ones, online and replayed, and over phases
+                9-11's frames (online and replayed).
+The kernels phase also holds phase 1 and the two envelopes against their
+plain versions at the new paths' canvases and the gate's slabs of them
+(240x240x168, 112x112x40, 80x80x40), and the canvas shift and the four
+row copies at those canvases' blocks (30x30x21, 14x14x5, 10x10x5) and
+their presets' archive sizes (every z arm, shifts past the canvas, a
+stream tick's 64 columns, repeated and zero ids, a full scroll's rows),
+and times each of the eight there.
 Then one line with every kernel's launches (summed over the paths, each
 counted from 0 just before it), error, times, bound and share, the
 card's nvidia-smi line, and last `{"ok": true, "device": {...}}`.
@@ -99,6 +133,10 @@ REF_SCROLL = os.path.join(ROOT, "tests", "fixtures", "torch_port_cow_scroll_ref.
 REF_SCAN2D = os.path.join(ROOT, "tests", "fixtures", "torch_port_scan2d_ref.npz")
 REF_FLAT = os.path.join(ROOT, "tests", "fixtures", "torch_port_scan2d_flat_ref.npz")
 REF_REPLAY = os.path.join(ROOT, "tests", "fixtures", "torch_port_replay_ref.npz")
+REF_SENSOR = {kind: os.path.join(ROOT, "tests", "fixtures",
+                                 f"torch_port_{name}_ref.npz")
+              for kind, name in (("depth", "depthcam"), ("multiscan", "laser3d"),
+                                 ("dda", "dda"))}
 # the scroll path's replay: frames per run (make_torch_port_ref.SCROLL_CHUNK)
 SCROLL_CHUNK = 10
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
@@ -504,6 +542,7 @@ def phase_kernels(dev, results, parent):
     # ---- the point-cloud sensor model: panorama, then carve ---------------------
     sensor_bad, sensor_report = sensor_model_kernels(dev, results, parent)
     scroll_bad, gather_report = scroll_kernels(dev, results)
+    new_bad, new_report = new_shape_kernels(dev)
     CLOCK.run()
     for entry in results.values():
         settle(entry)
@@ -513,13 +552,116 @@ def phase_kernels(dev, results, parent):
     env5_report()
     sensor_report()
     gather_report()
+    new_report()
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
+          "new_canvases_bad": new_bad,
           "envelope_generic_bad": env5_bad, "sensor_model_bad": sensor_bad,
           "edt_bad": edt_bad, "scroll_kernels_bad": scroll_bad,
           "ms": {k: round(v["ms"], 4) for k, v in results.items()},
           "device_ms": {k: round(v["device_ms"], 5) for k, v in results.items()},
           "host_us": {k: round(v["host_us"], 2) for k, v in results.items()},
           "plain_ms": {k: round(v["plain_ms"], 4) for k, v in results.items()}})
+
+
+def new_shape_kernels(dev):
+    """The kernels of the sensor paths at their canvases (depthcam
+    [240, 240, 168], laser3D [112, 112, 40], uav_raycast_fine [80, 80, 40]),
+    bitwise against their plain versions on the card: phase 1 and the two
+    envelopes there and at the gate's smallest and largest slab of each;
+    the canvas shift and the four row copies (scroll_checks) at each
+    preset's canvas blocks and archive size.  Each kernel timed at each
+    full canvas (device_ms, ms, host_us, bound).  Returns ({kernel:
+    differing values}, a function that prints the times once CLOCK has
+    run)."""
+    import torch
+
+    from gie_mapping_tpu_torch.models.pipeline import _slab_menu
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+    from gie_mapping_tpu_torch.utils.config import (depthcam_config,
+                                                     uav_laser3d_config,
+                                                     uav_laser3d_fine_config)
+
+    presets = {"depthcam": depthcam_config(), "laser3D": uav_laser3d_config(),
+               "uav_raycast_fine": uav_laser3d_fine_config(raycast_mode="dda")}
+    bad = {k: 0 for k in ("phase1", "envelope_packed", "envelope_mid") + SCROLL_KERNELS}
+    err, rows = {k: 0 for k in bad}, {}
+
+    def compare(name, a, b):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        bad[name] += int((d != 0).sum())
+        err[name] = max(err[name], int(d.max()) if d.numel() else 0)
+
+    def chain(t, mw):
+        """The three kernels' inputs at canvas t, as batch_edt builds them,
+        checked against the plain versions on the way."""
+        p1 = kp.phase1_packed(t, mw)
+        compare("phase1", p1, kp.phase1_packed_plain(t, mw))
+        w = p1.permute(0, 2, 1).contiguous()
+        yb = kp.phase1_pack_bits(t.shape[1])
+        kk, kpay = ke.envelope_packed(w, yb)
+        pk, ppay = ke.envelope_packed_plain(w, yb)
+        compare("envelope_packed", kk, pk)
+        compare("envelope_packed", kpay, ppay)
+        ib2 = ke.env_idx_bits(t.shape[0])
+        f = torch.where((ppay & 1) > 0, pk >> ib2, 1 << 28)
+        pay = ((pk & ((1 << ib2) - 1)) << 11) | ppay
+        km, kmp = ke.envelope_mid(f, pay)
+        pm, pmp = ke.envelope_mid_plain(f, pay)
+        compare("envelope_mid", km, pm)
+        compare("envelope_mid", kmp, pmp)
+        return w, yb, f, pay
+
+    for seed, (name, cfg) in enumerate(presets.items()):
+        shape = cfg.canvas_size
+        t = random_canvas(shape, 0.02, 40 + seed, dev)
+        mw = sum(shape)
+        w, yb, f, pay = chain(t, mw)
+        menu = _slab_menu(shape)
+        for sx, sy in (menu[0], menu[-1]):
+            chain(t[:sx, :sy].contiguous(), mw)
+        n = t.numel()
+        fns = {"phase1": (lambda t=t, mw=mw: kp.phase1_packed(t, mw),
+                          lambda t=t, mw=mw: kp.phase1_packed_plain(t, mw),
+                          5 * n, P1_OPS_PER_VOXEL * n),
+               "envelope_packed": (lambda w=w, yb=yb: ke.envelope_packed(w, yb),
+                                   lambda w=w, yb=yb: ke.envelope_packed_plain(w, yb),
+                                   12 * n, ENV_OPS_PER_SITE * n),
+               "envelope_mid": (lambda f=f, pay=pay: ke.envelope_mid(f, pay),
+                                lambda f=f, pay=pay: ke.envelope_mid_plain(f, pay),
+                                16 * n, ENV_OPS_PER_SITE * n)}
+        kname = {"phase1": "phase1_bits_kernel",
+                 "envelope_packed": "envelope_packed_fh_kernel",
+                 "envelope_mid": "envelope_mid_fh_kernel"}
+        inputs = scroll_checks(dev, cfg.canvas_blocks, cfg.max_blocks, 50 + 10 * seed,
+                               compare)
+        scroll = scroll_timings(cfg.canvas_blocks, inputs)
+        for k, (fn, plain, bytes_) in scroll.items():
+            fns[k] = (fn, plain, bytes_, 0)
+            kname[k] = k + "_kernel"
+        for k, (fn, plain, bytes_, ops) in fns.items():
+            entry = result(None, timing(fn, kname[k]), cuda_ms(plain, 3, warm=1),
+                           bytes_=bytes_, ops=ops)
+            if k in ("phase1", "envelope_packed", "envelope_mid"):
+                entry["slabs"] = [list(menu[0]), list(menu[-1])]
+            else:
+                entry["blocks"], entry["archive_rows"] = list(cfg.canvas_blocks), \
+                    cfg.max_blocks
+            rows[f"{k}@{name}"] = entry
+    torch.cuda.synchronize()
+    require(not any(bad.values()), "kernels",
+            f"kernels differ from their plain versions at the new canvases: {bad}")
+
+    def report():
+        for k, entry in rows.items():
+            settle(entry)
+            entry["max_abs_err"] = err[k.split("@")[0]]
+        emit({"phase": "kernels", "new_canvases": {
+            k: {f: v for f, v in e.items() if f not in ("library_ms",
+                                                      "library_device_ms",
+                                                      "library_host_us")}
+            for k, e in rows.items()}})
+    return bad, report
 
 
 def envelope_cases(mid=False):
@@ -728,10 +870,16 @@ def packed_words(shape, seed, device):
     return torch.from_numpy(w.astype(np.uint32).view(np.int32)).to(device)
 
 
-def scroll_kernels(dev, results):
+def scroll_checks(dev, cb, B, seed, compare):
     """The canvas shift and the four row copies against their plain
-    versions, bitwise, at the cow-lady scroll's shapes; returns the count
-    of differing words and the archive gather study's report."""
+    versions, bitwise (`compare(name, kernel's, plain's)`), at canvas blocks
+    `cb` and an archive of B rows: every z arm of the TPU kernel and shifts
+    past the canvas; all block columns, a stream tick's 64 (valid first,
+    zero padding repeated) and repeated ids; a full scroll's rows into the
+    archive (unique valid slots; where the canvas holds more blocks than the
+    archive, the rest invalid on slot 0, as _do_scroll passes them) and
+    gathers of 1, 32 columns' and all columns' rows.  Returns the inputs
+    the timings use."""
     import numpy as np
     import torch
 
@@ -739,32 +887,27 @@ def scroll_kernels(dev, results):
     from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
     from gie_mapping_tpu_torch.ops.kernels import shift as ks
 
-    ph = "kernels"
-    cb = (19, 19, 10)
-    X, Y, Z = 152, 152, 80
-    ncols, nb, B = 361, 3610, 11997
-    bad, err = {}, {}
-
-    def compare(name, a, b):
-        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
-        bad[name] = bad.get(name, 0) + int((d != 0).sum())
-        err[name] = max(err.get(name, 0), int(d.max()))
+    bx, by, bz = cb
+    X, Y, Z = 8 * bx, 8 * by, 8 * bz
+    ncols = bx * by
+    nb = ncols * bz
     # ---- shift: every z arm of the TPU kernel, and shifts past the canvas
-    cv = packed_words((X, Y, 3 * Z), 21, dev)
+    cv = packed_words((X, Y, 3 * Z), seed, dev)
     dflt = torch.from_numpy(np.tile(ms._PACKED_DEFAULT, Z).view(np.int32)).to(dev)
     for sh in ((1, 0, 0), (-1, 0, 0), (1, -1, 0), (0, 0, 1), (0, 0, -1),
-               (0, 0, 3), (0, 0, -3), (0, 0, 12), (0, 0, -12), (20, 0, 0),
-               (-20, 0, 0), (3, -2, 2), (1 << 27, 0, 0)):
+               (0, 0, 3), (0, 0, -3), (0, 0, bz - 1), (0, 0, 1 - bz),
+               (0, 0, bz + 2), (0, 0, -bz - 2), (bx + 1, 0, 0),
+               (-bx - 1, 0, 0), (3, -2, 2), (1 << 27, 0, 0)):
         compare("shift_canvas", ks.shift_canvas(cv, dflt, sh),
                 ks.shift_canvas_plain(cv, dflt, sh))
     # ---- canvas block-columns -> rows: all columns, a stream tick's 64
     # (valid first, zero padding repeated), repeats
     packed = cv.reshape(X, Y, Z, 3)
-    g = torch.Generator().manual_seed(22)
+    g = torch.Generator().manual_seed(seed + 1)
     id_sets = [torch.arange(ncols, dtype=torch.int32),
                torch.cat([torch.randperm(ncols, generator=g)[:40].to(torch.int32),
                           torch.zeros(24, dtype=torch.int32)]),
-               torch.tensor([7, 7, 360, 0, 7], dtype=torch.int32)]
+               torch.tensor([7, 7, ncols - 1, 0, 7], dtype=torch.int32)]
     for ids in id_sets:
         ids = ids.to(dev)
         compare("gather_block_rows", kb.gather_block_rows(packed, ids, cb),
@@ -773,22 +916,24 @@ def scroll_kernels(dev, results):
     # invalid (zero) column ids, all invalid, everything valid
     perm = torch.randperm(ncols, generator=g).to(torch.int32)
     cols = torch.cat([perm[:48], torch.zeros(16, dtype=torch.int32)]).to(dev)
-    rows = packed_words((64 * 10, 512, 3), 23, dev)
-    part = (torch.rand(640, generator=g) < 0.5).to(torch.int32)
-    part[480:] = 0
+    rows = packed_words((64 * bz, 512, 3), seed + 2, dev)
+    part = (torch.rand(64 * bz, generator=g) < 0.5).to(torch.int32)
+    part[48 * bz:] = 0
     for c, r, v in ((cols, rows, part.to(dev)),
-                    (cols, rows, torch.zeros(640, dtype=torch.int32, device=dev)),
-                    (perm.to(dev), packed_words((nb, 512, 3), 24, dev),
+                    (cols, rows, torch.zeros(64 * bz, dtype=torch.int32, device=dev)),
+                    (perm.to(dev), packed_words((nb, 512, 3), seed + 3, dev),
                      torch.ones(nb, dtype=torch.int32, device=dev))):
         compare("scatter_block_rows",
                 kb.scatter_block_rows(packed.clone(), r, c, v, cb),
                 kb.scatter_block_rows_plain(packed.clone(), r, c, v, cb))
-    # ---- archive rows: a full scroll's 3610 ids, unique valid targets
-    arch = packed_words((B, 1536), 25, dev)
-    aids = torch.randperm(B, generator=g)[:nb].to(torch.int32).to(dev)
-    # gathers of K = 1, 320 and 3610 rows with repeated ids and ids 0 and
-    # B - 1
-    for K in (1, 320, nb):
+    # ---- archive rows: a full scroll's nb rows, unique valid targets
+    arch = packed_words((B, 1536), seed + 4, dev)
+    na = min(nb, B)
+    aids = torch.cat([torch.randperm(B, generator=g)[:na].to(torch.int32),
+                      torch.zeros(nb - na, dtype=torch.int32)]).to(dev)
+    # gathers of K = 1, 32 columns' and all columns' rows with repeated ids
+    # and ids 0 and B - 1
+    for K in (1, 32 * bz, nb):
         ids = torch.randint(0, B, (K,), generator=g, dtype=torch.int32)
         ids[0] = B - 1
         if K > 3:
@@ -796,50 +941,104 @@ def scroll_kernels(dev, results):
         ids = ids.to(dev)
         compare("gather_archive_rows", kb.gather_archive_rows(arch, ids),
                 kb.gather_archive_rows_plain(arch, ids))
-    arows = packed_words((nb, 512, 3), 26, dev)
+    arows = packed_words((nb, 512, 3), seed + 5, dev)
     for v in ((torch.rand(nb, generator=g) < 0.5).to(torch.int32),
               torch.zeros(nb, dtype=torch.int32), torch.ones(nb, dtype=torch.int32)):
+        v[na:] = 0
         v = v.to(dev)
         compare("scatter_archive_rows",
                 kb.scatter_archive_rows(arch.clone(), arows, aids, v),
                 kb.scatter_archive_rows_plain(arch.clone(), arows, aids, v))
+    return dict(cv=cv, dflt=dflt, packed=packed, s64=id_sets[1].to(dev),
+                perm=perm.to(dev), arch=arch, aids=aids[:na], arows=arows[:na],
+                g=g)
+
+
+def scroll_timings(cb, i):
+    """{kernel: (kernel's call, plain call, kernel name, bytes)} at canvas
+    blocks `cb` on scroll_checks' inputs `i`: a 1-block x shift; a stream
+    tick's 64 columns out; a full scroll bucket of every column in; a full
+    scroll's rows into the archive (as many as it holds).  Bytes are each
+    kernel's rows (or the canvas) read once and written once."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
+    from gie_mapping_tpu_torch.ops.kernels import shift as ks
+
+    cv, dflt, packed, s64, perm = (i[k] for k in ("cv", "dflt", "packed", "s64", "perm"))
+    arch2, arows, aids = i["arch"].clone(), i["arows"], i["aids"]
+    nb, na = perm.numel() * cb[2], aids.numel()
+    all_valid = torch.ones(nb, dtype=torch.int32, device=cv.device)
+    r_all = kb.gather_block_rows(packed, perm, cb)
+    return {
+        "shift_canvas": (lambda: ks.shift_canvas(cv, dflt, (1, 0, 0)),
+                         lambda: ks.shift_canvas_plain(cv, dflt, (1, 0, 0)),
+                         2 * cv.numel() * 4),
+        "gather_block_rows": (lambda: kb.gather_block_rows(packed, s64, cb),
+                              lambda: kb.gather_block_rows_plain(packed, s64, cb),
+                              2 * s64.numel() * cb[2] * 1536 * 4),
+        "scatter_block_rows": (
+            lambda: kb.scatter_block_rows(packed, r_all, perm, all_valid, cb),
+            lambda: kb.scatter_block_rows_plain(packed, r_all, perm, all_valid, cb),
+            2 * nb * 1536 * 4),
+        "scatter_archive_rows": (
+            lambda: kb.scatter_archive_rows(arch2, arows, aids, all_valid[:na]),
+            lambda: kb.scatter_archive_rows_plain(arch2, arows, aids, all_valid[:na]),
+            2 * na * 1536 * 4),
+        "gather_archive_rows": (
+            lambda: kb.gather_archive_rows(arch2, aids),
+            lambda: kb.gather_archive_rows_plain(arch2, aids),
+            2 * na * 1536 * 4),
+    }
+
+
+def scroll_kernels(dev, results):
+    """The canvas shift and the four row copies against their plain
+    versions, bitwise, at the cow-lady scroll's shapes (scroll_checks), and
+    timed there; returns the count of differing words per kernel and the
+    archive gather study's report."""
+    import torch
+
+    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
+
+    ph = "kernels"
+    cb, B = (19, 19, 10), 11997
+    bad, err = {}, {}
+
+    def compare(name, a, b):
+        d = (a.to(torch.int64) - b.to(torch.int64)).abs()
+        bad[name] = bad.get(name, 0) + int((d != 0).sum())
+        err[name] = max(err.get(name, 0), int(d.max()))
+    i = scroll_checks(dev, cb, B, 21, compare)
     torch.cuda.synchronize()
     require(not any(bad.values()), ph, f"scroll kernels differ from their plain versions: {bad}")
-    # times at the main path's shapes: a 1-block x shift; a stream tick's 64
-    # columns out; a full scroll bucket of 361 columns (3610 rows) in;
-    # 3610 archive rows each way
-    all_valid = torch.ones(nb, dtype=torch.int32, device=dev)
-    s64 = id_sets[1].to(dev)
-    r_all = kb.gather_block_rows(packed, perm.to(dev), cb)
-    arch2 = arch.clone()
-    timings = {
-        "shift_canvas": (lambda: ks.shift_canvas(cv, dflt, (1, 0, 0)),
-                         lambda: ks.shift_canvas_plain(cv, dflt, (1, 0, 0))),
-        "gather_block_rows": (lambda: kb.gather_block_rows(packed, s64, cb),
-                              lambda: kb.gather_block_rows_plain(packed, s64, cb)),
-        "scatter_block_rows": (
-            lambda: kb.scatter_block_rows(packed, r_all, perm.to(dev), all_valid, cb),
-            lambda: kb.scatter_block_rows_plain(packed, r_all, perm.to(dev), all_valid, cb)),
-        "scatter_archive_rows": (
-            lambda: kb.scatter_archive_rows(arch2, arows, aids, all_valid),
-            lambda: kb.scatter_archive_rows_plain(arch2, arows, aids, all_valid)),
-    }
-    # bytes each kernel must move at those shapes: its rows (or the canvas)
-    # read once and written once
-    moved = {"shift_canvas": 2 * cv.numel() * 4,
-             "gather_block_rows": 2 * s64.numel() * cb[2] * 1536 * 4,
-             "scatter_block_rows": 2 * nb * 1536 * 4,
-             "scatter_archive_rows": 2 * nb * 1536 * 4}
-    # one PyTorch call that computes the same function, where there is one
-    aids64 = aids.long()
-    arows2 = arows.reshape(nb, 1536)
-    library = {"scatter_archive_rows": lambda: arch2.index_copy_(0, aids64, arows2)}
-    for k, (fk, fp) in timings.items():
+    timings = scroll_timings(cb, i)
+    # one PyTorch call that computes the same function, where there is one:
+    # index_copy_ for the archive rows; for the block rows, the plain
+    # versions' one advanced-indexing copy on a view of the canvas, with
+    # its index arithmetic made beforehand
+    packed, s64, perm = i["packed"], i["s64"], i["perm"]
+    arch2 = i["arch"].clone()
+    aids64 = i["aids"].long()
+    arows2 = i["arows"].reshape(-1, 1536)
+    view = packed.reshape(cb[0], 8, cb[1], 8, cb[2], 24)
+    g_ix = kb._entries(s64, cb[2], cb[1])
+    s_ix = kb._entries(perm, cb[2], cb[1])
+    s_rows = kb.gather_block_rows(packed, perm, cb).reshape(-1, 8, 8, 24)
+
+    def scatter_view():
+        view[s_ix[0], :, s_ix[1], :, s_ix[2], :] = s_rows
+    library = {"scatter_archive_rows": lambda: arch2.index_copy_(0, aids64, arows2),
+               "gather_block_rows": lambda: view[g_ix[0], :, g_ix[1], :, g_ix[2], :],
+               "scatter_block_rows": scatter_view}
+    for k, (fk, fp, moved) in timings.items():
+        if k == "gather_archive_rows":
+            continue  # its entry is the study's (archive_gather_study)
         results[k] = result(
-            err[k], timing(fk, k + "_kernel"), cuda_ms(fp, 10), bytes_=moved[k],
+            err[k], timing(fk, k + "_kernel"), cuda_ms(fp, 10), bytes_=moved,
             ops=0, library=timing(library[k]) if k in library else None)
     results["gather_archive_rows"], report = archive_gather_study(
-        dev, arch, err["gather_archive_rows"], g)
+        dev, i["arch"], err["gather_archive_rows"], i["g"])
     return bad, report
 
 
@@ -1578,9 +1777,7 @@ def phase_scan(dev, wrappers, flat):
         # the relax engine is not an exact Voronoi: hold it to its coc
         edt_bad, kept = coc_mismatch(st), None
     else:
-        off = mapper.last_output.pvt - mapper._origin * 8
-        edt_bad, kept = edt_mismatch(st, tuple(
-            slice(int(o), int(o) + n) for o, n in zip(off, cfg.local_size)))
+        edt_bad, kept = edt_mismatch(st, _window_slices(mapper, cfg))
     col = lambda k: [r[k] for r in recs]
     origins_ok = col("origin") == ref["origin"].tolist()
     steps_ok = (col("scrolled") == ref["scrolled"].tolist()
@@ -1755,10 +1952,7 @@ def phase_replay(dev, wrappers):
     launches = dict.fromkeys(wrappers, 0)
 
     def counted(run):
-        for w in wrappers.values():
-            w.launches = 0
-        r = run()
-        got = {k: w.launches for k, w in wrappers.items()}
+        r, got = _counted(wrappers, run)
         for k, v in got.items():
             launches[k] += v
         return r, got
@@ -1872,6 +2066,274 @@ def phase_replay(dev, wrappers):
     return launches
 
 
+def sensor_inputs(kind):
+    """(config, poses, measurements [K, ...], scalars, n_online, chunk) of
+    a projection sensor's path (datasets.depthcam_bench or laser3d_bench)."""
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.utils import config as tcfg
+
+    if kind == "depth":
+        overrides, world, poses, n_online, chunk = ds.depthcam_bench()
+        data, sc = ds.depth_frames(world, poses)
+        return (tcfg.depthcam_config(**overrides), poses, data, sc, n_online,
+                chunk)
+    overrides, world, poses, n_online, chunk = ds.laser3d_bench()
+    data, sc = ds.ring_frames(world, poses)
+    return (tcfg.uav_laser3d_config(**overrides), poses, data, sc, n_online,
+            chunk)
+
+
+def _sensor_calls(m, kind):
+    if kind == "depth":
+        return m.process_depth, m.process_depth_batch
+    return m.process_multiscan, m.process_multiscan_batch
+
+
+def run_sensor(dev, inputs, kind, replay, loop_ctx=None):
+    """A sensor path's frames on a fresh mapper: the first n_online through
+    the online call, then the rest through one batch call (`replay`) or one
+    by one, inside `loop_ctx`; then the stream is flushed and the capacity
+    checked.  Returns (mapper, last output, the online frames' output
+    digests, a record per frame of the rest: ms (CUDA events) and wall_ms,
+    a replay's times split evenly, and the canvas origin after each frame
+    run one by one)."""
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    cfg, poses, data, sc, n_online, chunk = inputs
+    m = VolumetricMapper(cfg, device=dev)
+    one, batch = _sensor_calls(m, kind)
+    dd = torch.from_numpy(data).to(dev)
+    head, origins = [], []
+    for i in range(n_online):
+        o = one(poses[i], dd[i], *sc)
+        head.append(output_digest(o.glb_type, o.dist_sq, o.coc))
+        origins.append(tuple(int(v) for v in m._origin))
+    torch.cuda.synchronize()
+    n = len(poses) - n_online
+    recs = []
+    with loop_ctx or contextlib.nullcontext():
+        if replay:
+            out, ms, wall = timed(lambda: batch(poses[n_online:], dd[n_online:],
+                                                *sc, chunk=chunk))
+            recs = [{"ms": ms / n, "wall_ms": wall / n}] * n
+        else:
+            for i in range(n_online, len(poses)):
+                out, ms, wall = timed(lambda: one(poses[i], dd[i], *sc))
+                recs.append({"ms": ms, "wall_ms": wall})
+                origins.append(tuple(int(v) for v in m._origin))
+    if cfg.display_glb_edt or cfg.display_glb_ogm:
+        m.flush_stream()
+    m.check_capacity()
+    return m, out, head, recs, origins
+
+
+def _counted(wrappers, run):
+    """run() with every wrapper's launch count set to 0 just before it;
+    returns (its result, {kernel: launches during it})."""
+    for w in wrappers.values():
+        w.launches = 0
+    r = run()
+    return r, {k: w.launches for k, w in wrappers.items()}
+
+
+def _window_slices(mapper, cfg):
+    """The last frame's window in canvas coordinates."""
+    off = mapper.last_output.pvt - mapper._origin * 8
+    return tuple(slice(int(o), int(o) + n) for o, n in zip(off, cfg.local_size))
+
+
+def phase_sensor(dev, wrappers, kind):
+    """A projection sensor's path (`depthcam` or `laser3D`): the replay
+    against its JAX fixture and the port's own per-frame run; returns the
+    launch counts of the replay."""
+    import warnings
+
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+    from gie_mapping_tpu_torch.models.mapper import CapacityWarning
+
+    ph = "depthcam" if kind == "depth" else "laser3D"
+    ref = np.load(REF_SENSOR[kind])
+    cfg, poses, data, sc, n_online, chunk = inputs = sensor_inputs(kind)
+    streaming = cfg.display_glb_edt or cfg.display_glb_ogm
+    runs = []
+
+    def run():
+        with recorded_runs(runs), warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            return run_sensor(dev, inputs, kind, True), caught
+
+    ((m, out, online_sha, replayed, _), caught), got = _counted(wrappers, run)
+    out = out.fetch()
+    cap_warn = [str(w.message) for w in caught
+                if issubclass(w.category, CapacityWarning)]
+    rec, st = replay_end(m, out, runs)
+    bad = [k for k, v in rec.items()
+           if not np.array_equal(np.asarray(v), ref["batch_" + k])]
+    if streaming:
+        if m.mirror.digest() != str(ref["mirror_sha"]):
+            bad.append("mirror_sha")
+    online_ok = online_sha == ref["online_out_sha"].tolist()
+    edt_bad, kept = edt_mismatch(
+        st, _window_slices(m, cfg) if cfg.fast_mode else None)
+    n = len(poses) - n_online
+    capacity, mirror_blocks = m.capacity_report(), len(m.mirror) if streaming else None
+    # the timed pass, as bench.py's: the same frames again on the same mapper
+    dd = torch.from_numpy(data[n_online:]).to(dev)
+    _, ms_again, wall_again = timed(lambda: _sensor_calls(m, kind)[1](
+        poses[n_online:], dd, *sc, chunk=chunk))
+    # the port's own per-frame run of the same frames, on a fresh mapper
+    lm, lo, _, frames, origins = run_sensor(dev, inputs, kind, False)
+    loop_ok = (state_digest(state_to_numpy(lm.state)) == rec["state_sha"]
+               and output_digest(lo.glb_type, lo.dist_sq, lo.coc) == rec["out_sha"])
+    ms = [r["ms"] for r in frames]
+    scrolls = sum(a != b for a, b in zip(origins, origins[1:]))
+    emit({"phase": ph, "frames": len(poses), "online_frames": n_online,
+          "chunk": chunk, "canvas": list(cfg.canvas_size),
+          "window": list(cfg.local_size), "launches": got,
+          "fixture_mismatch": bad, "online_frames_match": online_ok,
+          "frame_loop_match": loop_ok, "edt_mismatch": edt_bad,
+          "kept_outside_canvas": kept, "scrolls": scrolls,
+          "scanned_frames": rec["scanned_frames"],
+          "scanned_scrolls": rec["scanned_scrolls"],
+          "run_lengths": rec["run_lengths"],
+          "gate_levels": rec["pf_gate_level"].tolist(),
+          "capacity": capacity, "capacity_warnings": cap_warn,
+          "mirror_blocks": mirror_blocks,
+          "replay_ms_per_frame": replayed[0]["ms"],
+          "replay_wall_ms_per_frame": replayed[0]["wall_ms"],
+          "replay_again_ms_per_frame": ms_again / n,
+          "replay_again_wall_ms_per_frame": wall_again / n,
+          "online_ms_per_frame": float(np.mean(ms)),
+          "online_ms_per_frame_median": float(np.median(ms))})
+    require(not bad, ph, f"the replay differs from the JAX reference in {bad}")
+    require(online_ok, ph, "the online frames differ from the JAX reference")
+    require(loop_ok, ph, "the replay differs from the port's per-frame run")
+    require(edt_bad == 0, ph, f"canvas dist_sq is wrong at {edt_bad} voxels")
+    require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
+    require(scrolls > 0 and rec["scanned_scrolls"] > 0, ph,
+            "the path must scroll, also inside a run")
+    need = ("phase1", "envelope_packed", "envelope_mid") + SCROLL_KERNELS
+    require(all(got[k] > 0 for k in need), ph,
+            f"a kernel of the path never launched: {got}")
+    emit({"phase": ph, "ok": True, "launches": got})
+    return got
+
+
+def dda_inputs():
+    """(config, poses, clouds) of the DDA path (datasets.dda_path)."""
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.utils import config as tcfg
+
+    overrides, world, poses = ds.dda_path()
+    clouds = [world.pointcloud(p, n_rays=ds.SUITE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(poses)]
+    return tcfg.uav_laser3d_fine_config(**overrides), poses, clouds
+
+
+def run_dda(dev, inputs, loop_ctx=None):
+    """The DDA path's frames through process_pointcloud on a fresh mapper,
+    inside `loop_ctx`; returns (mapper, per-frame records)."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    cfg, poses, clouds = inputs
+    m = VolumetricMapper(cfg, device=dev)
+    staged = [m.stage_pointcloud(c) for c in clouds]
+    torch.cuda.synchronize()
+    recs = []
+    with loop_ctx or contextlib.nullcontext():
+        for i, (p, (pts, val)) in enumerate(zip(poses, staged)):
+            before = None if m._origin is None else m._origin.copy()
+            t0 = time.perf_counter()
+            out, t, _ = timed(lambda: m.process_pointcloud(p, pts, val))
+            wall = (time.perf_counter() - t0) * 1e3
+            gt = out.glb_type
+            recs.append(dict(
+                frame=i, ms=t, wall_ms=wall, gate_level=int(out.gate_level),
+                origin=[int(v) for v in m._origin],
+                scrolled=before is None or not np.array_equal(before, m._origin),
+                type_counts=np.bincount(gt.astype(np.int64).ravel(),
+                                        minlength=4)[:4].tolist(),
+                out_sha=output_digest(gt, out.dist_sq, out.coc)))
+        m.flush_stream()
+        m.check_capacity()
+    return m, recs
+
+
+def phase_dda(dev, wrappers):
+    """The DDA path against its JAX fixture; returns its launch counts."""
+    import warnings
+
+    import numpy as np
+
+    from gie_mapping_tpu_torch.map_state import state_digest, state_to_numpy
+    from gie_mapping_tpu_torch.models.mapper import CapacityWarning
+    from gie_mapping_tpu_torch.ops.raycast import max_dda_steps
+
+    ph = "dda"
+    ref = np.load(REF_SENSOR["dda"])
+    inputs = dda_inputs()
+    cfg = inputs[0]
+
+    def run():
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            return run_dda(dev, inputs), caught
+
+    ((m, recs), caught), got = _counted(wrappers, run)
+    cap_warn = [str(w.message) for w in caught
+                if issubclass(w.category, CapacityWarning)]
+    st = state_to_numpy(m.state)
+    edt_bad, kept = edt_mismatch(st, _window_slices(m, cfg))
+    col = lambda k: [r[k] for r in recs]
+    origins_ok = col("origin") == ref["origin"].tolist()
+    steps_ok = (col("scrolled") == ref["scrolled"].tolist()
+                and col("gate_level") == ref["gate_level"].tolist())
+    out_match = sum(r["out_sha"] == str(ref["out_sha"][i])
+                    for i, r in enumerate(recs))
+    sha_ok = state_digest(st) == str(ref["state_sha"])
+    mirror_ok = m.mirror.digest() == str(ref["mirror_sha"])
+    scroll_ms = [r["ms"] for r in recs[1:] if r["scrolled"]]
+    other_ms = [r["ms"] for r in recs[1:] if not r["scrolled"]]
+    emit({"phase": ph, "frames": len(recs), "points": cfg.max_raycast_points,
+          "dda_steps": max_dda_steps(cfg.local_size),
+          "canvas": list(cfg.canvas_size), "launches": got,
+          "edt_mismatch": edt_bad, "kept_outside_canvas": kept,
+          "origins_match": origins_ok, "scroll_gate_match": steps_ok,
+          "frames_bitwise": out_match, "state_sha_match": sha_ok,
+          "mirror_match": mirror_ok, "mirror_blocks": len(m.mirror),
+          "capacity": m.capacity_report(), "capacity_warnings": cap_warn,
+          "ms_per_frame_mean_after_first": float(np.mean(col("ms")[1:])),
+          "ms_per_frame_median_after_first": float(np.median(col("ms")[1:])),
+          "ms_scroll_frames_mean": float(np.mean(scroll_ms)) if scroll_ms else None,
+          "ms_other_frames_mean": float(np.mean(other_ms)),
+          "n_scroll_frames": len(scroll_ms)})
+    require(origins_ok, ph, "canvas origins differ from the JAX reference")
+    require(steps_ok, ph, "scrolls or gate levels differ from the JAX reference")
+    require(out_match == len(recs), ph,
+            f"only {out_match} of {len(recs)} frames match the JAX reference")
+    require(sha_ok, ph, "final state differs from the JAX reference")
+    require(mirror_ok, ph, "the host mirror differs from the JAX reference")
+    require(edt_bad == 0, ph, f"canvas dist_sq is wrong at {edt_bad} voxels")
+    require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
+    require(scroll_ms, ph, "the path must scroll")
+    need = ("phase1", "envelope_packed", "envelope_mid") + SCROLL_KERNELS
+    require(all(got[k] > 0 for k in need), ph,
+            f"a kernel of the path never launched: {got}")
+    emit({"phase": ph, "ok": True, "launches": got})
+    return got
+
+
 def phase_profile(dev, frames, poses, out_dir=None):
     """torch.profiler over the frame loop of a second run of each path:
     device time by kernel, launches, and the device's idle share of the
@@ -1887,6 +2349,14 @@ def phase_profile(dev, frames, poses, out_dir=None):
     bi = bench_inputs()
     for name, replay in (("bench_online", False), ("bench_replay", True)):
         runs[name] = lambda ctx, r=replay: run_bench(dev, bi, r, loop_ctx=ctx)
+    for kind, label in (("depth", "depthcam"), ("multiscan", "laser3D")):
+        si = sensor_inputs(kind)
+        for suffix, replay in (("online", False), ("replay", True)):
+            runs[f"{label}_{suffix}"] = (
+                lambda ctx, si=si, kind=kind, r=replay:
+                run_sensor(dev, si, kind, r, loop_ctx=ctx)[3])
+    di = dda_inputs()
+    runs["dda"] = lambda ctx: run_dda(dev, di, loop_ctx=ctx)[1]
     for name, run in runs.items():
         prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
         recs = run(prof)
@@ -1953,7 +2423,10 @@ def main(argv=None) -> int:
         for path_launches in (phase_scroll(dev, all_wrappers()),
                               phase_scan(dev, all_wrappers(), flat=False),
                               phase_scan(dev, all_wrappers(), flat=True),
-                              phase_replay(dev, all_wrappers())):
+                              phase_replay(dev, all_wrappers()),
+                              phase_sensor(dev, all_wrappers(), "depth"),
+                              phase_sensor(dev, all_wrappers(), "multiscan"),
+                              phase_dda(dev, all_wrappers())):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

@@ -1,17 +1,20 @@
 """VolumetricMapper of the PyTorch port: the engine's user entry point.
 
-Counterpart of gie_mapping_tpu/models/mapper.py for two map makers:
-`process_pointcloud` (sensor->world transform, projective carve, the
-host-gated canvas scroll, merge) with `stage_pointcloud`, and
-`process_scan2d` (the 2-D LiDAR model, scroll, merge); their replay forms
-`process_pointcloud_batch` (with `stage_pointcloud_batch`) and
-`process_scan2d_batch`, which plan runs of frames ahead and dispatch each
-run through pipeline.replay_frames; `warmup`, the per-frame output
-(`FrameOutput`, with the CostMap message and the planner queries),
-changed-block streaming to the host mirror (`_stream` / `flush_stream`)
-and the capacity monitor (`CapacityWarning`).  The mapper runs on the
-CUDA device unless it is given another.  Not ported yet: the depth-camera
-and multi-ring sensors (and their batch forms) and checkpoints.
+Counterpart of gie_mapping_tpu/models/mapper.py for the four map makers:
+`process_pointcloud` (sensor->world transform, the projective carve or the
+exact DDA walk, the host-gated canvas scroll, merge) with
+`stage_pointcloud`, `process_scan2d` (the 2-D LiDAR model, scroll, merge),
+`process_depth` (the depth camera) and `process_multiscan` (the multi-ring
+LiDAR); their replay forms `process_pointcloud_batch` (with
+`stage_pointcloud_batch`; projective only), `process_scan2d_batch`,
+`process_depth_batch` and `process_multiscan_batch`, which plan runs of
+frames ahead and dispatch each run through pipeline.replay_frames;
+`warmup`, the per-frame output (`FrameOutput`, with the CostMap message
+and the planner queries), changed-block streaming to the host mirror
+(`_stream` / `flush_stream`) and the capacity monitor
+(`CapacityWarning`).  The mapper runs on the CUDA device unless it is
+given another.  Not ported yet: the side channels process_ext_cloud and
+process_multiscan_cloud, and checkpoints.
 """
 from __future__ import annotations
 
@@ -28,8 +31,8 @@ from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
 from ..utils.constants import VB_WIDTH, VOX_OCCUPIED, VOX_UNKNOWN
-from .pipeline import (kernel_limits, merge_frame, pointcloud_sensor,
-                       replay_frames, scan_sensor, scroll_step)
+from .pipeline import (SENSORS, kernel_limits, merge_frame,
+                       pointcloud_sensor, replay_frames, scroll_step)
 
 
 def _host(v):
@@ -572,30 +575,54 @@ class VolumetricMapper:
         return (torch.from_numpy(buf).to(self.device),
                 torch.from_numpy(vmask).to(self.device))
 
+    def _process_sensor(self, kind, proj, data, row7, row8=()):
+        """One frame of a projection sensor (`kind`, a key of
+        pipeline.SENSORS): data is its measurement (a numpy array or a
+        tensor); row7 and row8 its scalars, carried as float32 as the JAX
+        package packs them into pose rows 7-8."""
+        t0 = time.perf_counter()
+        proj = self._sensor_proj(proj)
+        origin = proj.trans.cpu().numpy().astype(np.float32)
+        pvt, origin_blk, off = self._frame_geometry(origin)
+        sc = self._sensor_scalars(1, row7, row8)[0]
+        inst, counts = SENSORS[kind](
+            torch.as_tensor(data, dtype=torch.float32).to(self.device),
+            proj.rot.cpu().numpy(), origin, sc[0], sc[1], pvt, cfg=self.cfg)
+        return self._run(inst, counts, pvt, origin_blk, off,
+                         input_pointcloud=False, t_sensor0=t0)
+
     def process_scan2d(self, proj: geo.Projection, ranges, theta_min,
                        theta_inc):
         """2-D LiDAR frame: ranges [scan_num] (NaN where nothing was hit) of
         beams at theta_min + i * theta_inc in the sensor's z = 0 plane (a
         numpy array or a tensor)."""
-        t0 = time.perf_counter()
-        proj = self._sensor_proj(proj)
-        origin = proj.trans.cpu().numpy().astype(np.float32)
-        pvt, origin_blk, off = self._frame_geometry(origin)
-        # the pose and angles in float32, as the JAX package packs them
-        # into its frame upload
-        inst, counts = scan_sensor(
-            torch.as_tensor(ranges, dtype=torch.float32).to(self.device),
-            proj.rot.cpu().numpy(), origin, theta_min, theta_inc, pvt,
-            cfg=self.cfg)
-        return self._run(inst, counts, pvt, origin_blk, off,
-                         input_pointcloud=False, t_sensor0=t0)
+        return self._process_sensor("scan", proj, ranges,
+                                    (theta_min, theta_inc))
+
+    def process_depth(self, proj: geo.Projection, depth, fx, fy, cx, cy):
+        """Depth-camera frame: depth [rows, cols], the forward (x) distance
+        per pixel (NaN where nothing was measured; cfg.valid_nan reads NaN
+        as far), with pinhole intrinsics fx, fy, cx, cy; pixel (u, v) of a
+        sensor-frame point (x, y, z) is (-y fx / x + cx, -z fy / x + cy)."""
+        return self._process_sensor("depth", proj, depth, (fx, fy, cx),
+                                    (cy,))
+
+    def process_multiscan(self, proj: geo.Projection, rings, theta_min,
+                          theta_inc, phi_min, phi_inc):
+        """Multi-ring spinning-LiDAR frame: rings [ring_num, scan_num], the
+        horizontal range of the beam at elevation phi_min + i * phi_inc and
+        azimuth theta_min + j * theta_inc (NaN where nothing was hit)."""
+        return self._process_sensor("multiscan", proj, rings,
+                                    (theta_min, theta_inc, phi_min),
+                                    (phi_inc,))
 
     def process_pointcloud(self, proj: geo.Projection, points_sensor,
                            valid=None):
         """Point-cloud frame: points_sensor [N, 3] float32 in the SENSOR
         frame (a numpy array, or a tensor pair from stage_pointcloud).  With
-        cfg.fuse_raycast the sensor->world transform rounds as the JAX
-        package's frame program rounds it (it moves there), else as its
+        cfg.fuse_raycast on the projective model the sensor->world
+        transform rounds as the JAX package's frame program rounds it (it
+        moves there), else (and always with raycast_mode "dda") as its
         eager transform."""
         t0 = time.perf_counter()
         proj = self._sensor_proj(proj)
@@ -607,7 +634,8 @@ class VolumetricMapper:
             buf, vmask = self.stage_pointcloud(points_sensor, valid=valid)
         inst, counts = pointcloud_sensor(
             buf, vmask, proj.rot.cpu().numpy(), origin, pvt, cfg=self.cfg,
-            fused=self.cfg.fuse_raycast)
+            fused=(self.cfg.fuse_raycast
+                   and self.cfg.raycast_mode == "projective"))
         return self._run(inst, counts, pvt, origin_blk, off,
                          input_pointcloud=True, t_sensor0=t0)
 
@@ -665,20 +693,44 @@ class VolumetricMapper:
             fallback=lambda i: self.process_pointcloud(
                 projs[i], points[i], valids[i]))
 
+    def _sensor_batch(self, kind, projs, data, row7, row8=(), chunk=10):
+        """Replay of projection-sensor frames (see process_pointcloud_batch):
+        data [K, ...] is the frames' measurements; row7 and row8 hold the
+        scalars of pose rows 7-8, each a scalar or a [K] array."""
+        K = len(projs)
+        sc = self._sensor_scalars(K, [np.broadcast_to(v, K) for v in row7],
+                                  [np.broadcast_to(v, K) for v in row8])
+        data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
+        return self._process_batch(
+            projs, chunk=chunk, input_pointcloud=False, sensor_kind=kind,
+            data={"sensor_data": data}, scalars=sc,
+            fallback=lambda i: self._process_sensor(kind, projs[i], data[i],
+                                                    sc[i, 0], sc[i, 1]))
+
     def process_scan2d_batch(self, projs, ranges, theta_min, theta_inc,
                              chunk: int = 10):
         """Replay of 2-D LiDAR frames (see process_pointcloud_batch).
         `ranges` is [K, n_beams]; theta_min and theta_inc are scalars or
         [K] arrays, carried as float32."""
-        K = len(projs)
-        sc = self._sensor_scalars(K, [np.broadcast_to(theta_min, K),
-                                      np.broadcast_to(theta_inc, K)])
-        data = torch.as_tensor(ranges, dtype=torch.float32).to(self.device)
-        return self._process_batch(
-            projs, chunk=chunk, input_pointcloud=False, sensor_kind="scan",
-            data={"sensor_data": data}, scalars=sc,
-            fallback=lambda i: self.process_scan2d(
-                projs[i], data[i], float(sc[i, 0, 0]), float(sc[i, 0, 1])))
+        return self._sensor_batch("scan", projs, ranges,
+                                  (theta_min, theta_inc), chunk=chunk)
+
+    def process_depth_batch(self, projs, depths, fx, fy, cx, cy,
+                            chunk: int = 10):
+        """Replay of depth-camera frames (see process_pointcloud_batch).
+        `depths` is [K, rows, cols]; the intrinsics are scalars or [K]
+        arrays, carried as float32."""
+        return self._sensor_batch("depth", projs, depths, (fx, fy, cx), (cy,),
+                                  chunk=chunk)
+
+    def process_multiscan_batch(self, projs, rings, theta_min, theta_inc,
+                                phi_min, phi_inc, chunk: int = 10):
+        """Replay of multi-ring LiDAR frames (see process_pointcloud_batch).
+        `rings` is [K, ring_num, scan_num]; the bin geometry is scalars or
+        [K] arrays, carried as float32."""
+        return self._sensor_batch("multiscan", projs, rings,
+                                  (theta_min, theta_inc, phi_min), (phi_inc,),
+                                  chunk=chunk)
 
     @staticmethod
     def _sensor_scalars(K, row0, row1=()):

@@ -1,7 +1,8 @@
 """The per-frame map update of the PyTorch port.
 
 Counterpart of gie_mapping_tpu/models/pipeline.py: the frames' sensor
-models (`pointcloud_sensor`, `scan_sensor`), the host-gated canvas
+models (`pointcloud_sensor`, `scan_sensor`, `depth_sensor`,
+`multiscan_sensor`), the host-gated canvas
 scroll (`scroll_step`, the scroll half of scroll_frame_step), the replay
 of a planned run of frames (`replay_frames`), block
 allocation, occupancy fusion, the change-gated exact canvas EDT
@@ -35,7 +36,8 @@ from ..ops.edt_batch import batch_edt, batch_edt_slab
 from ..ops.fusion import _fence_mask, _lowpass
 from ..ops.kernels.envelope import ENVELOPE_MID_MAX_N, ENVELOPE_PACKED_MAX_N
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
-from ..ops.scan_sensors import ScanParam, hokuyo_update
+from ..ops.scan_sensors import (CamParam, MulScanParam, ScanParam,
+                                hokuyo_update, realsense_update, vlp16_update)
 from ..ops.wave import (invalidate_disappeared, mark_frontiers,
                         reconcile_window, relax_fixed_point)
 from ..utils import constants as _c
@@ -546,44 +548,77 @@ def scroll_step(state: MapState, new_origin_blk, *, cfg: MapConfig,
     return state, enter_shift
 
 
+def _pose(rot, origin, dev) -> geo.Projection:
+    return geo.Projection(torch.from_numpy(np.array(rot, np.float32)).to(dev),
+                          torch.from_numpy(np.array(origin, np.float32)).to(dev))
+
+
+def _sensor_kw(cfg: MapConfig) -> dict:
+    return dict(local_size=cfg.local_size, voxel_width=cfg.voxel_width,
+                ogm_min_h=cfg.ogm_min_h, ogm_max_h=cfg.ogm_max_h,
+                for_motion_planner=cfg.for_motion_planner,
+                robot_r2_grids=cfg.robot_r2_grids)
+
+
 def pointcloud_sensor(points, pts_valid, rot, origin, pvt, *, cfg: MapConfig,
                       fused: bool):
-    """One frame's projective point-cloud model: the sensor->world transform
-    of points [N, 3] (sensor frame), then the panorama carve.  rot [3, 3]
-    and origin (3,) float32 (host numpy), pvt host ints.  `fused` rounds
-    the transform as the JAX package's jitted frame program does
-    (fuse_raycast), else as its eager l2g.  Returns (inst_type, ray_count)
-    window tensors."""
-    dev = points.device
-    proj = geo.Projection(torch.from_numpy(np.array(rot, np.float32)).to(dev),
-                          torch.from_numpy(np.array(origin, np.float32)).to(dev))
+    """One frame's point-cloud model: the sensor->world transform of
+    points [N, 3] (sensor frame), then the projective carve, or with
+    cfg.raycast_mode "dda" the exact ray walk.  rot [3, 3] and origin (3,)
+    float32 (host numpy), pvt host ints.  `fused` rounds the transform as
+    the JAX package's jitted frame program does (fuse_raycast, projective
+    only), else as its eager l2g.  Returns (inst_type, ray_count) window
+    tensors."""
+    proj = _pose(rot, origin, points.device)
     world = proj.l2g_fused(points) if fused else proj.l2g(points)
+    origin = np.asarray(origin, np.float32)
+    if cfg.raycast_mode == "dda":
+        return rc.pointcloud_raycast(world, pts_valid, origin, pvt,
+                                     **_sensor_kw(cfg))
     nt, np_ = rc.panorama_bins(cfg.local_size)
-    return rc.pointcloud_project(
-        world, pts_valid, np.asarray(origin, np.float32), pvt,
-        local_size=cfg.local_size, voxel_width=cfg.voxel_width,
-        ogm_min_h=cfg.ogm_min_h, ogm_max_h=cfg.ogm_max_h,
-        for_motion_planner=cfg.for_motion_planner,
-        robot_r2_grids=cfg.robot_r2_grids, n_theta=nt, n_phi=np_)
+    return rc.pointcloud_project(world, pts_valid, origin, pvt,
+                                 n_theta=nt, n_phi=np_, **_sensor_kw(cfg))
 
 
-def scan_sensor(ranges, rot, origin, theta_min, theta_inc, pvt, *,
-                cfg: MapConfig):
-    """One frame's 2-D LiDAR model: ranges [n_beams] float32 on the device,
-    rot/origin float32 (host numpy), the beam angles as float32 values (the
-    JAX package's packed pose rows), pvt host ints.  Returns (inst_type,
-    ray_count = zeros)."""
+def scan_sensor(ranges, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+    """One frame's 2-D LiDAR model: ranges [n_beams] float32 on the device;
+    rot / origin float32 (host numpy); the beam angles as the JAX package
+    packs them in pose rows 7-8, s1 = (theta_min, theta_inc, ...), float32;
+    pvt host ints.  Returns (inst_type, ray_count = zeros)."""
     dev = ranges.device
-    pose = geo.Projection(torch.from_numpy(np.array(rot, np.float32)).to(dev),
-                          torch.from_numpy(np.array(origin, np.float32)).to(dev))
-    param = ScanParam(theta_min=float(np.float32(theta_min)),
-                      theta_inc=float(np.float32(theta_inc)), ranges=ranges)
-    inst = hokuyo_update(
-        pose, param, pvt, local_size=cfg.local_size,
-        voxel_width=cfg.voxel_width, ogm_min_h=cfg.ogm_min_h,
-        ogm_max_h=cfg.ogm_max_h, for_motion_planner=cfg.for_motion_planner,
-        robot_r2_grids=cfg.robot_r2_grids)
+    f = [float(np.float32(v)) for v in s1[:2]]
+    inst = hokuyo_update(_pose(rot, origin, dev), ScanParam(*f, ranges), pvt,
+                         **_sensor_kw(cfg))
     return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+
+
+def depth_sensor(depth, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+    """One frame's depth-camera model: depth [rows, cols] float32 on the
+    device; the intrinsics as the JAX package packs them in pose rows 7-8,
+    s1 = (fx, fy, cx) and s2 = (cy, ...), float32.  Returns (inst_type,
+    ray_count = zeros)."""
+    dev = depth.device
+    f = [float(np.float32(v)) for v in (*s1[:3], s2[0])]
+    inst = realsense_update(_pose(rot, origin, dev), CamParam(*f, depth), pvt,
+                            valid_nan=cfg.valid_nan, **_sensor_kw(cfg))
+    return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+
+
+def multiscan_sensor(rings, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+    """One frame's multi-ring LiDAR model: rings [ring_num, scan_num]
+    float32 on the device; the bin geometry as the JAX package packs it in
+    pose rows 7-8, s1 = (theta_min, theta_inc, phi_min) and s2 = (phi_inc,
+    ...), float32.  Returns (inst_type, ray_count = zeros)."""
+    dev = rings.device
+    f = [float(np.float32(v)) for v in (*s1[:3], s2[0])]
+    inst = vlp16_update(_pose(rot, origin, dev), MulScanParam(*f, rings), pvt,
+                        **_sensor_kw(cfg))
+    return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
+
+
+# the projection sensors by the JAX package's sensor_kind
+SENSORS = {"scan": scan_sensor, "depth": depth_sensor,
+           "multiscan": multiscan_sensor}
 
 
 def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
@@ -602,8 +637,9 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
     compact_cols: each frame's column bucket for its scroll (a list of K;
     None, or a None entry, moves every column).  The frames' data: points /
     pts_valid [K, N, 3] / [K, N] (the point-cloud model, transformed as
-    fuse_raycast rounds it) or sensor_data [K, n_beams] with sensor_kind
-    "scan".
+    fuse_raycast rounds it) or sensor_data [K, ...] with sensor_kind
+    "scan", "depth" or "multiscan" (each frame's ranges, depth image or
+    ring image).
 
     Every frame runs merge_frame with its enter_shift; only the last emits
     its window outputs.  Returns (state', last outputs, changed_union
@@ -641,12 +677,10 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
             inst, cnt = pointcloud_sensor(points[k], pts_valid[k], rot,
                                           sensor_origin, pvt, cfg=cfg,
                                           fused=True)
-        elif sensor_kind == "scan":
-            inst, cnt = scan_sensor(sensor_data[k], rot, sensor_origin,
-                                    poses[k, 7, 0], poses[k, 7, 1], pvt,
-                                    cfg=cfg)
         else:
-            raise KeyError(sensor_kind)
+            inst, cnt = SENSORS[sensor_kind](sensor_data[k], rot,
+                                             sensor_origin, poses[k, 7],
+                                             poses[k, 8], pvt, cfg=cfg)
         state, out = merge_frame(
             state, inst, cnt, pvt, origin, off, fence, cfg=cfg,
             input_pointcloud=input_pointcloud, use_fence=use_fence,

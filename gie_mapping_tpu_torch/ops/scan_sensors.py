@@ -1,9 +1,12 @@
-"""Projection ("inverse") sensor model of a 2-D LiDAR.
+"""Projection ("inverse") sensor models: 2-D LiDAR, depth camera and
+multi-ring 3-D LiDAR.
 
-Counterpart of gie_mapping_tpu/ops/scan_sensors.py::hokuyo_update (with
-ScanParam and the window helpers); the depth-camera and multi-ring models
-are not ported yet.  Every window voxel is projected into the scan and
-compared with the measured range of its beam.
+Counterpart of gie_mapping_tpu/ops/scan_sensors.py (hokuyo_update,
+realsense_update and vlp16_update, with ScanParam, CamParam, MulScanParam
+and the window helpers).  Every window voxel is projected into the
+measurement (a scan, a depth image, a ring image) and compared with the
+measured range there.  The depth image is read with a plain gather, as
+the JAX package does on the CPU (its TPU one-hot lookup is not carried).
 
 The beam index comes from float trigonometry, so every rounding step
 follows the JAX CPU reference's jitted frame program: the window position
@@ -28,8 +31,10 @@ import numpy as np
 import torch
 
 from ..utils import geometry as geo
-from ..utils.constants import VOX_FREE, VOX_OCCUPIED, VOX_UNKNOWN
-from ..utils.floats import fma_f32
+from ..utils.constants import (SENS_FAR_DIST, VOX_FREE, VOX_OCCUPIED,
+                               VOX_UNKNOWN)
+from ..utils.floats import (cosf_exact, fma_f32, ftz_f32, sinf_exact,
+                            sqrt_f32)
 from .kernels.carve import atan2f_exact, hypot2_f32
 
 
@@ -45,6 +50,46 @@ class ScanParam:
     @property
     def scan_num(self) -> int:
         return self.ranges.shape[0]
+
+
+@dataclasses.dataclass
+class CamParam:
+    """Pinhole intrinsics (float32 values) and the depth image (float32
+    [rows, cols] tensor, the forward distance per pixel; NaN where
+    nothing was measured)."""
+
+    fx: float
+    fy: float
+    cx: float
+    cy: float
+    depth: torch.Tensor
+
+
+@dataclasses.dataclass
+class MulScanParam:
+    """Multi-ring spinning-LiDAR geometry: the first column's azimuth and
+    the azimuth step, the lowest ring's elevation and the ring step
+    (float32 values), and the horizontal ranges (float32 [ring_num,
+    scan_num] tensor)."""
+
+    theta_min: float
+    theta_inc: float
+    phi_min: float
+    phi_inc: float
+    rings: torch.Tensor
+
+    @property
+    def ring_num(self) -> int:
+        return self.rings.shape[0]
+
+    @property
+    def scan_num(self) -> int:
+        return self.rings.shape[1]
+
+
+def _f32(v: float, dev) -> torch.Tensor:
+    """A float32 scalar tensor of the value v rounded to float32."""
+    return torch.tensor(float(np.float32(v)), device=dev)
 
 
 def _window_coords(pvt, local_size, device=None):
@@ -72,17 +117,16 @@ def beam_geometry(proj: geo.Projection, param: ScanParam, pvt, local_size,
     device of param.ranges."""
     dev = param.ranges.device
     c = _window_coords(pvt, local_size, dev)
-    vw = torch.tensor(float(np.float32(voxel_width)), device=dev)
+    vw = _f32(voxel_width, dev)
     glb_z = c[..., 2] * vw
     local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
     lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
 
     theta = atan2f_exact(ly, lx)
-    tmin = torch.tensor(float(np.float32(param.theta_min)), device=dev)
-    tinc = torch.tensor(float(np.float32(param.theta_inc)), device=dev)
     # a floor remainder: the beam index wraps into [0, scan_num)
-    theta_idx = torch.floor((theta - tmin) / tinc + 0.5).to(torch.int32) \
-        .remainder(param.scan_num)
+    theta_idx = torch.floor((theta - _f32(param.theta_min, dev))
+                            / _f32(param.theta_inc, dev) + 0.5) \
+        .to(torch.int32).remainder(param.scan_num)
     planar = lz.abs() < float(np.float32(voxel_width))
     idea_depth = torch.where(planar, hypot2_f32(lx, ly), -1.0)
     return glb_z, local_pos, theta_idx, idea_depth
@@ -106,9 +150,141 @@ def hokuyo_update(proj: geo.Projection, param: ScanParam, pvt, *, local_size,
     hgt_ok = (glb_z >= ogm_min_h) & (glb_z <= ogm_max_h)
     occ = (meas_ok & (idea_depth >= real_depth - 0.3)
            & (idea_depth <= real_depth + 0.3) & hgt_ok)
+    return _finish(occ, free, local_size, for_motion_planner, robot_r2_grids,
+                   dev)
+
+
+def _finish(occ, free, local_size, for_motion_planner, robot_r2_grids, dev):
+    """inst_type int8 of the occupied and free masks; with
+    for_motion_planner the robot's sphere is free."""
     inst = torch.where(occ, VOX_OCCUPIED, torch.where(free, VOX_FREE,
                                                       VOX_UNKNOWN))
     if for_motion_planner:
         inst = torch.where(_robot_sphere_mask(local_size, robot_r2_grids, dev),
                            VOX_FREE, inst)
     return inst.to(torch.int8)
+
+
+def pixel_geometry(proj: geo.Projection, param: CamParam, pvt, local_size,
+                   voxel_width):
+    """Per window voxel: its world height, its forward distance in the
+    sensor frame (x) and its pixel column and row (int32, unclipped),
+    rounded as the JAX reference's jitted program rounds them: the frame
+    change as the 2-D LiDAR's, then floor(-y * fx / d + cx + 0.5) with
+    IEEE operations in that order (d = x, or 1e-6 where |x| <= 1e-6).
+    proj lies on the device of param.depth."""
+    dev = param.depth.device
+    c = _window_coords(pvt, local_size, dev)
+    vw = _f32(voxel_width, dev)
+    glb_z = c[..., 2] * vw
+    local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
+    lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
+    eps = _f32(1e-6, dev)
+    safe = torch.where(lx.abs() > eps, lx, eps)
+    px = torch.floor(-ly * _f32(param.fx, dev) / safe + _f32(param.cx, dev)
+                     + 0.5).to(torch.int32)
+    py = torch.floor(-lz * _f32(param.fy, dev) / safe + _f32(param.cy, dev)
+                     + 0.5).to(torch.int32)
+    return glb_z, lx, px, py
+
+
+def realsense_update(proj: geo.Projection, param: CamParam, pvt, *,
+                     local_size, voxel_width, ogm_min_h, ogm_max_h,
+                     for_motion_planner: bool, robot_r2_grids: int,
+                     valid_nan: bool = False) -> torch.Tensor:
+    """Depth-camera inverse model over the window at pivot `pvt` (host
+    ints).  Sensor frame: x forward (depth), y left, z up.  A NaN pixel is
+    a miss (valid_nan: far, SENS_FAR_DIST; else unmeasured); an +Inf pixel
+    is measured: free up to the frustum, never occupied.  proj and
+    param.depth lie on the device the result takes.  Returns inst_type
+    int8 [X, Y, Z]."""
+    local_size = tuple(int(s) for s in local_size)
+    dev = param.depth.device
+    proj = proj.to(dev)
+    rows, cols = param.depth.shape
+    glb_z, idea, px, py = pixel_geometry(proj, param, pvt, local_size,
+                                         voxel_width)
+    in_frustum = ((idea > 0.3) & (idea <= 6.0) & (px >= 0) & (px < cols)
+                  & (py >= 0) & (py < rows))
+    # the NaN policy on the image side, as the JAX package applies it
+    dimg = torch.where(torch.isnan(param.depth),
+                       SENS_FAR_DIST if valid_nan else -1.0, param.depth)
+    real = dimg[py.clamp(0, rows - 1).long(), px.clamp(0, cols - 1).long()]
+    meas_ok = in_frustum & (real > 0.21)
+    vw = float(np.float32(voxel_width))
+    free = meas_ok & (idea < real - vw)
+    hgt_ok = (glb_z >= ogm_min_h) & (glb_z <= ogm_max_h)
+    occ = (meas_ok & (idea >= real - vw) & (idea <= real + vw) & hgt_ok)
+    return _finish(occ, free, local_size, for_motion_planner, robot_r2_grids,
+                   dev)
+
+
+def ring_geometry(proj: geo.Projection, param: MulScanParam, pvt, local_size,
+                  voxel_width):
+    """Per window voxel: its world height, its azimuth bin (wrapped into
+    [0, scan_num)) and elevation bin (int32, unclipped), its horizontal
+    range and its distance to the axis of the beam of its bins' angles
+    (float32), rounded as the JAX reference's jitted program rounds them:
+    atan2 and sin / cos are the C library's, every root correctly rounded,
+    the horizontal range sqrt(fma(x, x, y * y)), the axis distance
+    sqrt(fma(z, z, fma(x, x, y * y))) of the cross product (x, y, z), and
+    each cross-product term a * b - c * d as fma(a, b, -(c * d)): LLVM
+    contracts the left product of a sum or difference of two products.
+    The axis distance's squares flush subnormal values to zero, as XLA's
+    CPU code does.  proj lies on the device of
+    param.rings."""
+    dev = param.rings.device
+    c = _window_coords(pvt, local_size, dev)
+    vw = _f32(voxel_width, dev)
+    glb_z = c[..., 2] * vw
+    local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
+    lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
+
+    theta = atan2f_exact(ly, lx)
+    theta_idx = torch.floor((theta - _f32(param.theta_min, dev))
+                            / _f32(param.theta_inc, dev) + 0.5) \
+        .to(torch.int32).remainder(param.scan_num)
+    range_hor = hypot2_f32(lx, ly)
+    phi = atan2f_exact(lz, range_hor)
+    phi_idx = torch.floor((phi - _f32(param.phi_min, dev))
+                          / _f32(param.phi_inc, dev) + 0.5).to(torch.int32)
+
+    uz = sinf_exact(phi)
+    uxy = cosf_exact(phi)
+    ux = uxy * cosf_exact(theta)
+    uy = uxy * sinf_exact(theta)
+    cxv = fma_f32(uz, ly, -(uy * lz))
+    cyv = fma_f32(ux, lz, -(uz * lx))
+    czv = fma_f32(uy, lx, -(ux * ly))
+    # a voxel on the beam's axis squares a tiny term: XLA flushes the
+    # subnormal result to zero
+    sq = ftz_f32(fma_f32(cxv, cxv, ftz_f32(cyv * cyv)))
+    dist2ray = sqrt_f32(ftz_f32(fma_f32(czv, czv, sq)))
+    return glb_z, theta_idx, phi_idx, range_hor, dist2ray
+
+
+def vlp16_update(proj: geo.Projection, param: MulScanParam, pvt, *,
+                 local_size, voxel_width, ogm_min_h, ogm_max_h,
+                 for_motion_planner: bool, robot_r2_grids: int) -> torch.Tensor:
+    """Multi-ring spherical-projection inverse model over the window at
+    pivot `pvt` (host ints): a voxel is compared with the range of its
+    (elevation, azimuth) bin when it lies within one voxel width of that
+    beam's axis; free below the range - 0.3 m, occupied within 0.1 m of
+    it.  proj and param.rings lie on the device the result takes.
+    Returns inst_type int8 [X, Y, Z]."""
+    local_size = tuple(int(s) for s in local_size)
+    dev = param.rings.device
+    proj = proj.to(dev)
+    glb_z, theta_idx, phi_idx, range_hor, dist2ray = ring_geometry(
+        proj, param, pvt, local_size, voxel_width)
+    phi_ok = (phi_idx >= 0) & (phi_idx < param.ring_num)
+    vw = float(np.float32(voxel_width))
+    idea = torch.where(phi_ok & (dist2ray < vw), range_hor, -1.0)
+    real = param.rings[phi_idx.clamp(0, param.ring_num - 1).long(),
+                       theta_idx.long()]
+    meas_ok = (idea >= 0) & ~torch.isnan(real) & (real > 0.3)
+    free = meas_ok & (idea < real - 0.3)
+    hgt_ok = (glb_z >= ogm_min_h) & (glb_z <= ogm_max_h)
+    occ = (meas_ok & (idea >= real - 0.1) & (idea <= real + 0.1) & hgt_ok)
+    return _finish(occ, free, local_size, for_motion_planner, robot_r2_grids,
+                   dev)

@@ -1,12 +1,11 @@
-"""Synthetic worlds, the point-cloud and 2-D LiDAR simulators and
-trajectories (numpy only).
+"""Synthetic worlds, the four sensors' simulators and trajectories (numpy
+only), and the paths the port is driven along on the GPU.
 
 BoxWorld and circular_trajectory are copies from
 gie_mapping_tpu/runtime/datasets.py (the machine that runs the port on a
 GPU has no JAX, and the JAX package's module imports its JAX geometry):
-worlds, clouds and scans made from one seed are identical in both
-packages.  The simulators of the sensors the port does not have yet stay
-there.
+worlds, clouds, scans, depth images and ring images made from one seed are
+identical in both packages.
 """
 from __future__ import annotations
 
@@ -132,6 +131,44 @@ class BoxWorld:
         ranges = self.ray_march(np.asarray(proj.trans), v @ rot.T, max_range)
         ok = ~np.isnan(ranges)
         return (v[ok] * ranges[ok, None]).astype(np.float32)
+
+    def depth_image(self, proj: geo.Projection, rows=48, cols=64, fx=40.0,
+                    fy=40.0, cx=None, cy=None, max_range=12.0):
+        """Simulated depth camera (x forward, y left, z up): (depth float32
+        [rows, cols], the forward component of the hit's range, NaN where
+        nothing is hit; fx; fy; cx; cy)."""
+        cx = cols / 2 if cx is None else cx
+        cy = rows / 2 if cy is None else cy
+        px, py = np.meshgrid(np.arange(cols), np.arange(rows))
+        y = (cx - px) / fx
+        z = (cy - py) / fy
+        d = np.stack([np.ones_like(y), y, z], -1).astype(np.float32)
+        d /= np.linalg.norm(d, axis=-1, keepdims=True)
+        rot = np.asarray(proj.rot)
+        rng = self.ray_march(np.asarray(proj.trans), d.reshape(-1, 3) @ rot.T,
+                             max_range)
+        fwd = rng * d.reshape(-1, 3)[:, 0]
+        return fwd.reshape(rows, cols).astype(np.float32), fx, fy, cx, cy
+
+    def multiscan(self, proj: geo.Projection, ring_num=16, scan_num=360,
+                  phi_min=np.deg2rad(-15.0), phi_inc=np.deg2rad(2.0),
+                  theta_min=-np.pi, theta_inc=None, max_range=25.0):
+        """Simulated 16-ring spinning LiDAR: (horizontal ranges float32
+        [ring_num, scan_num], NaN where nothing is hit; theta_min;
+        theta_inc; phi_min; phi_inc)."""
+        if theta_inc is None:
+            theta_inc = 2 * np.pi / scan_num
+        th = theta_min + np.arange(scan_num) * theta_inc
+        ph = phi_min + np.arange(ring_num) * phi_inc
+        T, P = np.meshgrid(th, ph)
+        dirs = np.stack([np.cos(P) * np.cos(T), np.cos(P) * np.sin(T),
+                         np.sin(P)], -1)
+        rot = np.asarray(proj.rot)
+        rng = self.ray_march(np.asarray(proj.trans),
+                             dirs.reshape(-1, 3) @ rot.T, max_range)
+        horiz = rng * np.cos(P).reshape(-1)
+        return (horiz.reshape(ring_num, scan_num).astype(np.float32),
+                theta_min, theta_inc, phi_min, phi_inc)
 
 
 def circular_trajectory(n_frames=20, radius=2.0, height=1.0, closed=False):
@@ -284,3 +321,74 @@ def scan2d_flat_path():
     half a turn apart, then 7 steps of +0.6 m in x."""
     return yaw_then_translate(n_yaw=3, n_move=7, start=(-3.0, 1.0, 1.0),
                               yaw_step=np.pi, step_x=0.6)
+
+
+# bench_suite.py's frames and trajectory for the preset-scale sensor cases
+SUITE_BASE_FRAMES = 40
+SUITE_DEPTH = dict(rows=96, cols=128, fx=80.0, fy=80.0, max_range=6.0)
+SUITE_RAYS = 16384  # bench_suite.py's live points for point-cloud cases
+
+
+def suite_world_circle(local_size_m):
+    """bench_suite.py's case_world_poses at chunk 40: the corridor world
+    (seed 11, 8 pillars) scaled to the window, and a closed 40-pose circle
+    of radius 0.35 * extent at 0.4 * the window's height."""
+    extent = min(local_size_m[0] * 0.45, 4.5)
+    world = BoxWorld.corridor(seed=11, n_pillars=8, extent=extent,
+                              height=max(local_size_m[2], 2.5))
+    loop = circular_trajectory(n_frames=SUITE_BASE_FRAMES,
+                               radius=extent * 0.35,
+                               height=local_size_m[2] * 0.4, closed=True)
+    return world, loop
+
+
+def depthcam_bench():
+    """(MapConfig overrides, world, poses, n_online, chunk) of the depthcam
+    path: the depthcam preset (100 x 100 x 30 window of 0.1 m, 240 x 240 x
+    168 canvas with one slack block, fast_mode off, 6 m cutoff) with
+    streaming off, as bench_suite.py runs it; the closed 40-pose circle of
+    radius 1.575 m at 1.2 m, its first 2 poses in front (bench_suite's
+    warm-up frames).  The first `n_online` frames go through process_depth,
+    the 40 after them through one process_depth_batch call with `chunk` =
+    40.  Frame i is depth_frames(world, poses)[i]."""
+    world, loop = suite_world_circle((10.0, 10.0, 3.0))
+    overrides = dict(display_glb_edt=False, display_glb_ogm=False)
+    return overrides, world, loop[:2] + loop, 2, SUITE_BASE_FRAMES
+
+
+def laser3d_bench():
+    """(MapConfig overrides, world, poses, n_online, chunk) of the laser3D
+    path: the laser3D preset at its own defaults (80 x 80 x 10 window of
+    0.2 m, 112 x 112 x 40 canvas, fast_mode, for_motion_planner, streaming
+    on); bench_suite.py's circle for its window (radius 1.575 m at 0.8 m),
+    its first 2 poses in front, as depthcam_bench."""
+    world, loop = suite_world_circle((16.0, 16.0, 2.0))
+    return {}, world, loop[:2] + loop, 2, SUITE_BASE_FRAMES
+
+
+def dda_path(n_frames=12):
+    """(MapConfig overrides, world, poses) of the DDA path: the
+    uav_raycast_fine preset (50 x 50 x 15 window of 0.2 m, 80 x 80 x 40
+    canvas, streaming on) with raycast_mode "dda" and bench_suite.py's
+    point-cloud overrides (16384 points, fuse_raycast, which the DDA mode
+    does not use); the first `n_frames` poses of its circle (radius 1.575
+    m at 1.2 m).  Frame i's cloud is world.pointcloud(poses[i],
+    n_rays=SUITE_RAYS, max_range=8.0, seed=i)."""
+    world, loop = suite_world_circle((10.0, 10.0, 3.0))
+    overrides = dict(raycast_mode="dda", max_raycast_points=SUITE_RAYS,
+                     fuse_raycast=True)
+    return overrides, world, loop[:n_frames]
+
+
+def depth_frames(world, poses):
+    """(depth images float32 [K, 96, 128], (fx, fy, cx, cy)) of
+    bench_suite.py's depth camera at each pose."""
+    imgs = [world.depth_image(p, **SUITE_DEPTH) for p in poses]
+    return np.stack([im[0] for im in imgs]), imgs[0][1:]
+
+
+def ring_frames(world, poses):
+    """(ring images float32 [K, 16, 360], (theta_min, theta_inc, phi_min,
+    phi_inc)) of bench_suite.py's 16-ring LiDAR at each pose."""
+    scans = [world.multiscan(p) for p in poses]
+    return np.stack([s[0] for s in scans]), scans[0][1:]

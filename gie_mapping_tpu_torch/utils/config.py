@@ -44,7 +44,7 @@ PORTED_VALUES = {
     "edt_mid": True,
     "edt_gate_pmode": "block",
     "merge_mode": ("canvas_edt", "relax"),
-    "raycast_mode": "projective",
+    "raycast_mode": ("projective", "dda"),
     "fuse_raycast": (False, True),
     "profile_loc_rms": False,
     "profile_glb_rms": False,

@@ -3,7 +3,7 @@ through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
 these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
-        [--only slice|scroll|scan2d|flat|replay]
+        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -53,6 +53,25 @@ scroll part the host mirror's digest after flush_stream.  The script
 asserts: the bench batch runs as one scanned run of 40 frames; the scroll
 replay scans runs with scrolls, falls back around the teleport, and drops
 nothing from the archive.
+
+tests/fixtures/torch_port_depthcam_ref.npz and torch_port_laser3d_ref.npz,
+the two projection sensors at bench_suite.py's settings
+(datasets.depthcam_bench: the depthcam preset with streaming off, 96 x 128
+depth images; datasets.laser3d_bench: the laser3D preset at its own
+defaults, streaming on, 16 x 360 ring images), each 2 frames through
+process_depth / process_multiscan, then the closed 40-pose circle in one
+batch call with chunk 40.  Each holds the window-output sha256, origin and
+gate level of the 2 online frames and, under `batch_`, what the replay
+part holds (state, last outputs, payload8, counters, every run's
+per_frame); laser3d also the host mirror's digest.  The script asserts
+that the batch scrolls inside a run and drops nothing from the archive.
+tests/fixtures/torch_port_dda_ref.npz, the DDA path (datasets.dda_path:
+the uav_raycast_fine preset with raycast_mode "dda", streaming on, 16384
+points, 12 frames through process_pointcloud): per frame the canvas
+origin, whether it scrolled, the gate level, the voxel type counts and
+the window-output sha256; the final state sha256, map_ct and the host
+mirror's digest.  It asserts a scroll and no archive drop.  depthcam takes
+about ten minutes on the CPU, the other two a few.
 """
 from __future__ import annotations
 
@@ -70,6 +89,9 @@ OUT_SCROLL = os.path.join(HERE, "torch_port_cow_scroll_ref.npz")
 OUT_SCAN2D = os.path.join(HERE, "torch_port_scan2d_ref.npz")
 OUT_FLAT = os.path.join(HERE, "torch_port_scan2d_flat_ref.npz")
 OUT_REPLAY = os.path.join(HERE, "torch_port_replay_ref.npz")
+OUT_DEPTHCAM = os.path.join(HERE, "torch_port_depthcam_ref.npz")
+OUT_LASER3D = os.path.join(HERE, "torch_port_laser3d_ref.npz")
+OUT_DDA = os.path.join(HERE, "torch_port_dda_ref.npz")
 SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine
@@ -328,10 +350,115 @@ def run_replay(path):
           f"({time.time() - t0:.1f} s)")
 
 
+def run_sensor(path, kind):
+    """A projection sensor's bench_suite.py run (2 online frames, then the
+    40-frame circle in one batch call) through the JAX mapper; writes
+    `path`."""
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils import config as jcfg
+    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
+
+    t0 = time.time()
+    runs = _recording_runs()
+    runs.clear()
+    if kind == "depth":
+        overrides, world, poses, n_online, chunk = ds.depthcam_bench()
+        cfg = jcfg.depthcam_config(**overrides)
+        data, sc = ds.depth_frames(world, poses)
+    else:
+        overrides, world, poses, n_online, chunk = ds.laser3d_bench()
+        cfg = jcfg.uav_laser3d_config(**overrides)
+        data, sc = ds.ring_frames(world, poses)
+    projs = [geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+             for p in poses]
+    mapper = VolumetricMapper(cfg)
+    one = mapper.process_depth if kind == "depth" else mapper.process_multiscan
+    batch = (mapper.process_depth_batch if kind == "depth"
+             else mapper.process_multiscan_batch)
+    online = {"out_sha": [], "origin": [], "gate_level": []}
+    for i in range(n_online):
+        out = one(projs[i], data[i], *sc).fetch()
+        online["out_sha"].append(output_digest(out.glb_type, out.dist_sq,
+                                               out.coc))
+        online["origin"].append(np.asarray(mapper._origin, np.int32))
+        online["gate_level"].append(int(out.gate_level))
+        print(f"online frame {i}: gate {out.gate_level} origin "
+              f"{mapper._origin.tolist()} ({time.time() - t0:.1f} s)",
+              flush=True)
+    out = batch(projs[n_online:], data[n_online:], *sc, chunk=chunk).fetch()
+    if cfg.display_glb_edt or cfg.display_glb_ogm:
+        mapper.flush_stream()
+    mapper.check_capacity()
+    arrays = _last("batch", mapper, out, cfg, runs)
+    for k, v in online.items():
+        arrays["online_" + k] = np.asarray(v)
+    if mapper.mirror is not None:
+        arrays["mirror_sha"] = np.asarray(mirror_digest(mapper.mirror.blocks))
+        arrays["mirror_blocks"] = np.asarray(len(mapper.mirror))
+    assert mapper.replay_scanned_scrolls >= 1, mapper.replay_scanned_scrolls
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
+def run_dda(path):
+    """The DDA path through the JAX mapper's process_pointcloud; writes
+    `path`."""
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils.config import uav_laser3d_fine_config
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+    from gie_mapping_tpu_torch.runtime.datasets import SUITE_RAYS, dda_path
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
+
+    t0 = time.time()
+    overrides, world, poses = dda_path()
+    cfg = uav_laser3d_fine_config(**overrides)
+    mapper = VolumetricMapper(cfg)
+    rec = {k: [] for k in ("origin", "scrolled", "gate_level", "type_counts",
+                           "out_sha")}
+    for i, p in enumerate(poses):
+        proj = geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+        pts = world.pointcloud(p, n_rays=SUITE_RAYS, max_range=8.0, seed=i)
+        before = None if mapper._origin is None else mapper._origin.copy()
+        out = mapper.process_pointcloud(proj, pts).fetch()
+        rec["origin"].append(np.asarray(mapper._origin, np.int32))
+        rec["scrolled"].append(before is None
+                               or not np.array_equal(before, mapper._origin))
+        rec["gate_level"].append(int(out.gate_level))
+        rec["type_counts"].append(np.bincount(
+            np.asarray(out.glb_type, np.int64).ravel(), minlength=4)[:4])
+        rec["out_sha"].append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        print(f"frame {i}: origin {rec['origin'][-1].tolist()} types "
+              f"{rec['type_counts'][-1].tolist()} ({time.time() - t0:.1f} s)",
+              flush=True)
+    mapper.flush_stream()
+    mapper.check_capacity()
+    scrolled = np.asarray(rec["scrolled"], bool)
+    assert scrolled[1:].sum() >= 1, scrolled
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    np.savez_compressed(
+        path, origin=np.stack(rec["origin"]), scrolled=scrolled,
+        gate_level=np.asarray(rec["gate_level"]),
+        type_counts=np.stack(rec["type_counts"]).astype(np.int64),
+        out_sha=np.asarray(rec["out_sha"]),
+        state_sha=np.asarray(state_digest(_state(mapper))),
+        map_ct=np.asarray(mapper.map_ct),
+        mirror_sha=np.asarray(mirror_digest(mapper.mirror.blocks)),
+        mirror_blocks=np.asarray(len(mapper.mirror)))
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
-                                       "replay"))
+                                       "replay", "depthcam", "laser3d",
+                                       "dda"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
@@ -352,6 +479,12 @@ def main():
         run_scan(OUT_FLAT, FLAT, scan2d_flat_path(), flat=True)
     if args.only in (None, "replay"):
         run_replay(OUT_REPLAY)
+    if args.only in (None, "depthcam"):
+        run_sensor(OUT_DEPTHCAM, "depth")
+    if args.only in (None, "laser3d"):
+        run_sensor(OUT_LASER3D, "multiscan")
+    if args.only in (None, "dda"):
+        run_dda(OUT_DDA)
 
 
 if __name__ == "__main__":

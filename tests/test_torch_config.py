@@ -57,7 +57,7 @@ def test_validation_matches():
 
 
 @pytest.mark.parametrize("override", [
-    dict(edt_env_variant="mono"), dict(raycast_mode="dda"), dict(edt_mid=False),
+    dict(edt_env_variant="mono"), dict(edt_env_variant="cf"), dict(edt_mid=False),
     dict(edt_phase1="xla"), dict(edt_env_variant="base"),
     dict(edt_gate_pmode="voxel"), dict(profile_glb_rms=True),
     dict(profile_loc_rms=True),

@@ -473,3 +473,127 @@ def test_replay_on_gpu_matches_cpu(dev, scrolls):
         (a.map_ct, a.replay_scanned_frames, a.replay_scanned_scrolls)
     assert (b.replay_scanned_scrolls > 0) == scrolls
     np.testing.assert_array_equal(b._origin, a._origin)
+
+
+# ---------------------------------------------------------------------------
+# the projection sensors and the DDA walk (plain PyTorch on both devices)
+# ---------------------------------------------------------------------------
+
+def test_sinf_cosf_on_gpu_match_cpu(dev):
+    """glibc's sinf / cosf carried in float64 operations give the same bits
+    on the card as on the CPU (where tests/test_torch_multiscan.py holds
+    them to the C library)."""
+    from gie_mapping_tpu_torch.utils.floats import cosf_exact, sinf_exact
+
+    rng = np.random.default_rng(0)
+    v = torch.from_numpy(rng.uniform(-np.pi, np.pi, 1 << 20).astype(np.float32))
+    for fn in (sinf_exact, cosf_exact):
+        assert torch.equal(fn(v.to(dev)).cpu().view(torch.int32),
+                           fn(v).view(torch.int32))
+
+
+def _sensor_kw(ct):
+    return dict(local_size=ct.local_size, voxel_width=ct.voxel_width,
+                ogm_min_h=ct.ogm_min_h, ogm_max_h=ct.ogm_max_h,
+                for_motion_planner=ct.for_motion_planner,
+                robot_r2_grids=ct.robot_r2_grids)
+
+
+@pytest.mark.parametrize("kind", ["depth", "multiscan"])
+@pytest.mark.parametrize("window", ["golden", "preset"])
+def test_projection_sensors_on_gpu_match_cpu(dev, kind, window):
+    """realsense_update and vlp16_update (with their pixel and ring
+    geometry) on the card against the CPU, every voxel, at random tilted
+    poses, the voxel-face pose and images with NaN / +Inf / 0 pixels."""
+    from gie_mapping_tpu_torch.models import pipeline as tp
+    from gie_mapping_tpu_torch.utils import config as tcfg
+    import test_torch_sensor_cases as sc
+
+    kw = sc.SMALL if window == "golden" else {}
+    ct = (tcfg.depthcam_config(**kw) if kind == "depth"
+          else tcfg.uav_laser3d_config(**kw))
+    rows, data = sc.poses(kind, ct.local_size, ct.voxel_width, n=3)
+    face = sc.face_pose(ct.local_size, ct.voxel_width)
+    face[7], face[8, 0] = rows[0, 7], rows[0, 8, 0]
+    rows = np.concatenate([rows, face[None]])
+    extra = sc.edge_depth(data[0]) if kind == "depth" else data[0].copy()
+    if kind == "multiscan":
+        extra[:, ::3] = np.nan
+    data = np.concatenate([data, extra[None]])
+    for k in range(len(rows)):
+        args = (rows[k, 3:6], rows[k, 6], rows[k, 7], rows[k, 8],
+                rows[k, 0].astype(np.int32))
+        want, _ = tp.SENSORS[kind](torch.from_numpy(data[k]), *args, cfg=ct)
+        got, _ = tp.SENSORS[kind](torch.from_numpy(data[k]).to(dev), *args,
+                                  cfg=ct)
+        assert torch.equal(got.cpu(), want), k
+
+
+@pytest.mark.parametrize("origin", [(0.0, 0.0, 1.0), (0.3, 0.5, 0.7)])
+def test_dda_raycast_on_gpu_matches_cpu(dev, origin):
+    """pointcloud_raycast on the card against the CPU: ray_count and
+    inst_type on the edge rays and a random cloud of 16384 rays, at the
+    uav_raycast_fine window."""
+    from gie_mapping_tpu_torch.utils import geometry as geo
+    import test_torch_sensor_cases as sc
+
+    ls = (50, 50, 15)
+    o = np.asarray(origin, np.float32)
+    pvt = geo.calculate_pivot(o, 0.2, ls)
+    rnd, valid = sc.random_rays(o, 16384, 3, near=1.0)
+    edge = sc.dda_rays(o)
+    kw = dict(local_size=ls, voxel_width=0.2, ogm_min_h=0.2, ogm_max_h=3.0,
+              for_motion_planner=True, robot_r2_grids=9)
+    for pts, val in ((edge, np.ones(len(edge), bool)), (rnd, valid)):
+        wi, wc = rc.pointcloud_raycast(torch.from_numpy(pts),
+                                       torch.from_numpy(val), o, pvt, **kw)
+        gi, gc = rc.pointcloud_raycast(torch.from_numpy(pts).to(dev),
+                                       torch.from_numpy(val).to(dev), o, pvt,
+                                       **kw)
+        assert torch.equal(gc.cpu(), wc) and torch.equal(gi.cpu(), wi)
+
+
+@pytest.mark.parametrize("kind", ["depth", "multiscan"])
+def test_sensor_replay_on_gpu_matches_cpu(dev, kind):
+    """process_depth_batch / process_multiscan_batch on the card against
+    the port on the CPU: state, last outputs, per_frame and counters."""
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.runtime.datasets import BoxWorld
+    from gie_mapping_tpu_torch.utils import config as tcfg
+    from gie_mapping_tpu_torch.utils import geometry as geo
+
+    kw = dict(local_size_m=(5.0, 5.0, 2.0), voxel_width=0.2, cutoff_dist=2.0,
+              max_blocks=4096, edt_gate_min_vox=0)
+    cfg = (tcfg.depthcam_config(**kw) if kind == "depth"
+           else tcfg.uav_laser3d_config(**kw))
+    world = BoxWorld.corridor(seed=3, n_pillars=5, extent=3.0, height=2.0)
+    q = (np.cos(0.15), 0.0, 0.0, np.sin(0.15))
+    poses = [geo.Projection.from_pose(
+        np.asarray([-1.2 + 0.45 * i, 0.2 * i, 1.0], np.float32), q)
+        for i in range(9)]
+    if kind == "depth":
+        got = [world.depth_image(p, rows=40, cols=52) for p in poses]
+    else:
+        got = [world.multiscan(p, ring_num=16, scan_num=180, max_range=8.0)
+               for p in poses]
+    data, sc = np.stack([g[0] for g in got]), got[0][1:]
+    res = []
+    for d in ("cpu", dev):
+        m = VolumetricMapper(cfg, device=d)
+        one = m.process_depth if kind == "depth" else m.process_multiscan
+        batch = (m.process_depth_batch if kind == "depth"
+                 else m.process_multiscan_batch)
+        one(poses[0], data[0], *sc)
+        out = batch(poses[1:], data[1:], *sc, chunk=4).fetch()
+        res.append((m, out))
+    (a, oa), (b, ob) = res
+    sa, sb = ms.state_to_numpy(a.state), ms.state_to_numpy(b.state)
+    for k in ms.FIELDS:
+        np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+    for k in ("edt", "dist_sq", "coc", "glb_type", "changed_blk"):
+        np.testing.assert_array_equal(getattr(ob, k), getattr(oa, k), err_msg=k)
+    for k, v in oa.per_frame.items():
+        assert torch.equal(ob.per_frame[k].cpu(), v), k
+    assert (b.map_ct, b.replay_scanned_frames, b.replay_scanned_scrolls) == \
+        (a.map_ct, a.replay_scanned_frames, a.replay_scanned_scrolls)
+    assert b.replay_scanned_scrolls > 0

@@ -300,7 +300,7 @@ def test_scan_body_beam_geometry_matches_jax():
     want = np.asarray(scan(poses, ranges))
     for k in range(K):
         got, _ = tpipe.scan_sensor(T(ranges[k]), poses[k, 3:6], poses[k, 6],
-                                   poses[k, 7, 0], poses[k, 7, 1],
+                                   poses[k, 7], poses[k, 8],
                                    poses[k, 0].astype(np.int32), cfg=cfg_t)
         np.testing.assert_array_equal(got.numpy(), want[k], err_msg=f"frame {k}")
 
