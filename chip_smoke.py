@@ -6,7 +6,8 @@
 Phases, one JSON line each; any failure exits non-zero:
   1. device   - a CUDA card is required (there is no CPU path); prints its
                 name and power limit as nvidia-smi reports them.
-  2. build    - compiles the CUDA kernels (csrc/) with nvcc.
+  2. build    - compiles the CUDA kernels (csrc/) with nvcc and, beside
+                them, the host library (native/src/gie_host.cpp) with g++.
   3. kernels  - each kernel against its plain PyTorch version on the card, at
                 the paths' shapes and at random ones (ties, empty lanes):
                 phase 1 and the three envelopes bitwise on every lane (also
@@ -85,8 +86,11 @@ Phases, one JSON line each; any failure exits non-zero:
                 mapper.  The replay must equal the JAX package's
                 (tests/fixtures/torch_port_depthcam_ref.npz: the 2 online
                 frames' outputs, final state, last outputs, payload8,
-                every run's per_frame, counters) and the per-frame run
-                (state, last outputs); the final canvas EDT must equal
+                every run's per_frame, counters), the per-frame run the
+                JAX per-frame run (state, last outputs), and the two runs
+                must be equal exactly where JAX's are (the per-frame
+                program rounds the sensor's height offset unlike the
+                replay's scan program); the final canvas EDT must equal
                 scipy's; the path must scroll, and phases 1-3 and the five
                 scroll kernels must launch.  Prints online and replay ms
                 per frame (the replay timed again over a second pass).
@@ -102,7 +106,26 @@ Phases, one JSON line each; any failure exits non-zero:
                 final state and the host mirror against
                 tests/fixtures/torch_port_dda_ref.npz; every valid voxel's
                 dist_sq against its coc and scipy in the last window.
- 12. profile  - only with --profile: torch.profiler over a second run of
+ 12. cli      - the entry points a user runs, against the JAX package's
+                results on the same inputs (tests/fixtures/torch_port_cli_ref.npz):
+                (a) the two committed bags (tests/fixtures/handmade_v2*.bag)
+                through the port's bag reader, every converted frame's
+                arrays; (b) every preset at its own defaults (cow_lady,
+                ugv_corridor, uav_raycast_fine, depthcam, laser3D, scan2D)
+                through cli.main with 4 frames, a checkpoint and a CSV log,
+                and cow_lady again with --batch 4: the summary's counts, the
+                sha256 of every checkpoint array, one CSV row per frame,
+                each case's ms per frame; (e) scan2D again with --profile:
+                the CSV's RMSE column; (c) a resume: cow_lady's 6 synthetic
+                frames saved after frame 3 and loaded into a fresh mapper,
+                against the JAX resume and the uninterrupted run; (d)
+                process_multiscan_cloud at the laser3D preset (the host
+                library's ring images bitwise, outputs, state, mirror) and
+                against the port's replay of its ring images, and
+                process_ext_cloud between two process_pointcloud_batch calls
+                at the cow_lady preset's width (datasets.ext_churn_path)
+                and in the port's frame loop.
+ 13. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -145,6 +168,72 @@ FLAT = dict(local_size_m=(10.0, 10.0, 0.1), merge_mode="relax")
 SCROLL_KERNELS = ("shift_canvas", "gather_block_rows", "scatter_block_rows",
                   "gather_archive_rows", "scatter_archive_rows")
 LOG: list = []
+
+# the cli phase (tests/fixtures/make_torch_port_ref.py --only cli writes its
+# JAX results): every preset through cli.main at its own defaults, one
+# replayed in runs of 4, one with the RMSE check; the committed bags; a
+# resume; the two side channels
+REF_CLI = os.path.join(ROOT, "tests", "fixtures", "torch_port_cli_ref.npz")
+CLI_FRAMES = 4
+CLI_CASES = ("cow_lady", "ugv_corridor", "uav_raycast_fine", "depthcam",
+             "laser3D", "scan2D")
+CLI_RUNS = tuple((c, c, ()) for c in CLI_CASES) + (
+    ("cow_lady_batch4", "cow_lady", ("--batch", "4")),
+    ("scan2D_profile", "scan2D", ("--profile",)))
+CLI_COUNTS = ("frames", "occupied_voxels", "gate_level_last",
+              "frontier_voxels", "mirror_blocks", "arch_dropped")
+BAGS = (("handmade_v2.bag", "/scan", "/odom"),
+        ("handmade_v2_pc2.bag", "/velodyne_points", "/odom"))
+RESUME_FRAMES, RESUME_SPLIT = 6, 4
+
+
+def cli_argv(case, extra, workdir):
+    """The CLI's argv for one run: CLI_FRAMES frames, a checkpoint and a
+    CSV log in `workdir`."""
+    return [case, "--frames", str(CLI_FRAMES),
+            "--save", os.path.join(workdir, "map.npz"),
+            "--log", os.path.join(workdir, "log.csv"), *extra]
+
+
+def array_digest(a) -> str:
+    """sha256 over an array's dtype, shape and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    h = hashlib.sha256(f"{a.dtype.str}{a.shape}".encode())
+    h.update(a.tobytes())
+    return h.hexdigest()
+
+
+def checkpoint_digests(path) -> dict:
+    """{key: array_digest} of every array in a checkpoint (the arrays, not
+    the compressed file)."""
+    import numpy as np
+
+    with np.load(path) as raw:
+        return {k: array_digest(raw[k]) for k in raw.files}
+
+
+def csv_rows(path):
+    """The data rows of a CSV log, each a list of cells."""
+    with open(path) as f:
+        lines = f.read().strip().splitlines()
+    return [ln.split(",") for ln in lines[1:]]
+
+
+def bag_frames(rosbag, path, sensor, odom) -> dict:
+    """{"i/field": array} of a bag's frames as `rosbag.bag_to_frames`
+    converts them (one second of slop: the handmade bags' poses lie up to
+    half a second from their sensor messages)."""
+    import numpy as np
+
+    frames = rosbag.bag_to_frames(path, sensor, odom, slop=1.0)
+    return {f"{i}/{k}": np.asarray(v) for i, fr in enumerate(frames)
+            for k, v in fr.items()}
+
+
 # the studies' old kernels: a copy of the parent commit's package
 # (`git archive`), put here by the caller; git ignores the directory, and
 # without the copy the studies have no old times
@@ -2190,15 +2279,23 @@ def phase_sensor(dev, wrappers, kind):
         poses[n_online:], dd, *sc, chunk=chunk))
     # the port's own per-frame run of the same frames, on a fresh mapper
     lm, lo, _, frames, origins = run_sensor(dev, inputs, kind, False)
-    loop_ok = (state_digest(state_to_numpy(lm.state)) == rec["state_sha"]
-               and output_digest(lo.glb_type, lo.dist_sq, lo.coc) == rec["out_sha"])
+    # the per-frame program rounds the sensor's height offset unlike the
+    # replay's scan program (ROADMAP C): the frame loop is held against
+    # JAX's frame loop, and equal to the replay exactly where JAX's is
+    loop_sha = state_digest(state_to_numpy(lm.state))
+    loop_ok = (loop_sha == str(ref["loop_state_sha"])
+               and output_digest(lo.glb_type, lo.dist_sq, lo.coc)
+               == str(ref["loop_out_sha"]))
+    loop_is_replay = loop_sha == rec["state_sha"]
+    jax_loop_is_replay = str(ref["loop_state_sha"]) == str(ref["batch_state_sha"])
     ms = [r["ms"] for r in frames]
     scrolls = sum(a != b for a, b in zip(origins, origins[1:]))
     emit({"phase": ph, "frames": len(poses), "online_frames": n_online,
           "chunk": chunk, "canvas": list(cfg.canvas_size),
           "window": list(cfg.local_size), "launches": got,
           "fixture_mismatch": bad, "online_frames_match": online_ok,
-          "frame_loop_match": loop_ok, "edt_mismatch": edt_bad,
+          "frame_loop_match": loop_ok, "loop_equals_replay": loop_is_replay,
+          "jax_loop_equals_replay": jax_loop_is_replay, "edt_mismatch": edt_bad,
           "kept_outside_canvas": kept, "scrolls": scrolls,
           "scanned_frames": rec["scanned_frames"],
           "scanned_scrolls": rec["scanned_scrolls"],
@@ -2214,7 +2311,9 @@ def phase_sensor(dev, wrappers, kind):
           "online_ms_per_frame_median": float(np.median(ms))})
     require(not bad, ph, f"the replay differs from the JAX reference in {bad}")
     require(online_ok, ph, "the online frames differ from the JAX reference")
-    require(loop_ok, ph, "the replay differs from the port's per-frame run")
+    require(loop_ok, ph, "the per-frame run differs from the JAX reference's")
+    require(loop_is_replay == jax_loop_is_replay, ph,
+            "the replay against the per-frame run differs from the JAX relation")
     require(edt_bad == 0, ph, f"canvas dist_sq is wrong at {edt_bad} voxels")
     require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
     require(scrolls > 0 and rec["scanned_scrolls"] > 0, ph,
@@ -2334,6 +2433,258 @@ def phase_dda(dev, wrappers):
     return got
 
 
+def _same(a, b) -> bool:
+    """Bitwise equality of two arrays (dtype, shape and bytes)."""
+    import numpy as np
+
+    a, b = np.asarray(a), np.asarray(b)
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.tobytes() == b.tobytes())
+
+
+def cli_runs(wrappers, smi):
+    """Every run of CLI_RUNS through cli.main on the card; returns
+    ({tag: (summary, checkpoint digests, CSV rows)}, {tag: launches})."""
+    import tempfile
+
+    from gie_mapping_tpu_torch import cli as tcli
+
+    res, launches = {}, {}
+    for tag, case, extra in CLI_RUNS:
+        with tempfile.TemporaryDirectory() as d:
+            argv = cli_argv(case, extra, d)
+            (summary, wall), launches[tag] = _counted(
+                wrappers, lambda: timed_wall(lambda: tcli.main(argv)))
+            res[tag] = (summary, checkpoint_digests(os.path.join(d, "map.npz")),
+                        csv_rows(os.path.join(d, "log.csv")))
+        emit({"phase": "cli", "run": tag, "argv": argv[:3] + list(extra),
+              "ms_per_frame": summary["ms_per_frame"],
+              "wall_s_with_setup": round(wall, 3), "nvidia_smi": smi})
+    return res, launches
+
+
+def timed_wall(fn):
+    """(fn(), host seconds)."""
+    t0 = time.perf_counter()
+    r = fn()
+    return r, time.perf_counter() - t0
+
+
+def phase_cli(dev, wrappers, smi):
+    """The entry points a user runs, on the card, against the JAX package's
+    results (tests/fixtures/torch_port_cli_ref.npz): the committed bags
+    through the port's reader; every preset through cli.main at its own
+    defaults (CLI_FRAMES frames, checkpoint and CSV), cow_lady also with
+    --batch 4 and scan2D also with --profile; a resume from a checkpoint
+    against the uninterrupted run; process_multiscan_cloud at the laser3D
+    preset against the port's own replay of its ring images;
+    process_ext_cloud between two replay calls at the cow_lady preset's
+    width against the port's own frame loop.  Returns the launch counts of
+    all of it."""
+    import tempfile
+
+    import numpy as np
+
+    from gie_mapping_tpu_torch import cli as tcli
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.runtime import rosbag as trosbag
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
+    from gie_mapping_tpu_torch.runtime.rings import cloud_to_rings
+    from gie_mapping_tpu_torch.utils import config as tcfg
+
+    ph = "cli"
+    ref = np.load(REF_CLI)
+    t_phase = time.perf_counter()
+    sha = lambda out: output_digest(out.glb_type, out.dist_sq, out.coc)
+    state_sha = lambda m: state_digest(state_to_numpy(m.state))
+
+    # (a) the committed bags
+    bag_bad, n_arrays = [], 0
+    for name, sensor, odom in BAGS:
+        got = bag_frames(trosbag, os.path.join(ROOT, "tests", "fixtures", name),
+                         sensor, odom)
+        pre = f"bag/{name}/"
+        want = {k[len(pre):]: ref[k] for k in ref.files if k.startswith(pre)}
+        n_arrays += len(want)
+        if set(got) != set(want):
+            bag_bad.append(f"{name}: fields {sorted(set(got) ^ set(want))}")
+            continue
+        bag_bad += [f"{name}/{k}" for k in want if not _same(got[k], want[k])]
+    emit({"phase": ph, "part": "bags", "arrays": n_arrays, "mismatch": bag_bad})
+    require(n_arrays > 0 and not bag_bad, ph, f"bag frames differ: {bag_bad}")
+
+    # (b) every preset through the CLI, (e) the profiled run
+    runs, launches = cli_runs(wrappers, smi)
+    bad = []
+    for tag, (summary, digests, rows) in runs.items():
+        pre = f"cli/{tag}/"
+        bad += [f"{tag}.{k}" for k in CLI_COUNTS
+                if summary[k] != int(ref[pre + k])]
+        want = {k[len(pre) + 4:]: str(ref[k]) for k in ref.files
+                if k.startswith(pre + "sha/")}
+        if digests != want:
+            bad.append(f"{tag}.checkpoint: " + ", ".join(
+                sorted(k for k in set(want) | set(digests)
+                       if digests.get(k) != want.get(k))))
+        if len(rows) != summary["frames"] or len(rows) != int(ref[pre + "csv_rows"]):
+            bad.append(f"{tag}.csv_rows")
+        if pre + "rmse" in ref.files:
+            if [r[2] for r in rows] != ref[pre + "rmse"].tolist():
+                bad.append(f"{tag}.rmse: {[r[2] for r in rows]}")
+    emit({"phase": ph, "part": "runs", "runs": len(runs),
+          "summaries": {t: r[0] for t, r in runs.items()},
+          "rmse": [r[2] for r in runs["scan2D_profile"][2]],
+          "launches": launches, "mismatch": bad})
+    require(not bad, ph, f"CLI runs differ from the JAX reference: {bad}")
+    for tag, got in launches.items():
+        need = ("phase1", "envelope_packed", "envelope_mid")
+        if runs[tag][0]["case"] in ("cow_lady", "ugv_corridor",
+                                    "uav_raycast_fine"):
+            need += ("panorama", "carve")
+        require(all(got[k] > 0 for k in need), ph,
+                f"{tag}: a kernel of its path never launched: {got}")
+
+    # (c) resume: save after RESUME_SPLIT frames, load into a fresh mapper
+    cfg = tcfg.cow_lady_config()
+    frames = list(tcli.synthetic_frames(cfg, RESUME_FRAMES))
+
+    def resume():
+        full = VolumetricMapper(cfg, device=dev)
+        full_sha = [sha(tcli.dispatch(full, p, k, pl).fetch())
+                    for p, (k, pl) in frames]
+        full.flush_stream()
+        first = VolumetricMapper(cfg, device=dev)
+        for p, (k, pl) in frames[:RESUME_SPLIT]:
+            tcli.dispatch(first, p, k, pl)
+        with tempfile.TemporaryDirectory() as d:
+            ckpt = os.path.join(d, "map.npz")
+            first.save(ckpt)
+            digests = checkpoint_digests(ckpt)
+            second = VolumetricMapper(cfg, device=dev).load(ckpt)
+        out_sha = [sha(tcli.dispatch(second, p, k, pl).fetch())
+                   for p, (k, pl) in frames[RESUME_SPLIT:]]
+        return full_sha, state_sha(full), digests, out_sha, second
+
+    (full_sha, full_state, digests, out_sha, second), got = _counted(wrappers, resume)
+    launches["resume"] = got
+    rec = {"full_out_sha": full_sha == ref["resume/full_out_sha"].tolist(),
+           "full_state_sha": full_state == str(ref["resume/full_state_sha"]),
+           "ckpt_sha": [list(kv) for kv in sorted(digests.items())]
+           == ref["resume/ckpt_sha"].tolist(),
+           "out_sha": out_sha == ref["resume/out_sha"].tolist(),
+           "state_sha": state_sha(second) == str(ref["resume/state_sha"]),
+           "map_ct": second.map_ct == int(ref["resume/map_ct"])}
+    vs_full = {"outputs": out_sha == full_sha[RESUME_SPLIT:],
+               "state": state_sha(second) == full_state}
+    ref_vs_full = {
+        "outputs": ref["resume/out_sha"].tolist()
+        == ref["resume/full_out_sha"].tolist()[RESUME_SPLIT:],
+        "state": str(ref["resume/state_sha"]) == str(ref["resume/full_state_sha"])}
+    emit({"phase": ph, "part": "resume", "frames": RESUME_FRAMES,
+          "saved_after": RESUME_SPLIT, "match_jax": rec,
+          "equal_to_uninterrupted": vs_full,
+          "jax_equal_to_uninterrupted": ref_vs_full, "launches": got})
+    require(all(rec.values()), ph, f"the resume differs from the JAX reference: {rec}")
+    require(vs_full == ref_vs_full, ph,
+            f"resume against the uninterrupted run: {vs_full}, JAX {ref_vs_full}")
+
+    # (d) the raw ring cloud at the laser3D preset
+    cfg = tcfg.uav_laser3d_config()
+    world, poses = ds.multiscan_cloud_path()
+    clouds = [ds.ring_cloud(world, p) for p in poses]
+
+    def multiscan():
+        m = VolumetricMapper(cfg, device=dev)
+        outs, origins = [], []
+        for p, (pts, ring, pmin, pinc) in zip(poses, clouds):
+            outs.append(m.process_multiscan_cloud(p, pts, ring, phi_min=pmin,
+                                                  phi_inc=pinc).fetch())
+            origins.append(m._origin.tolist())
+        m.flush_stream()
+        return m, outs, origins
+
+    (m, outs, origins), got = _counted(wrappers, multiscan)
+    launches["multiscan_cloud"] = got
+    rings = [cloud_to_rings(pts, ring) for pts, ring, _, _ in clouds]
+    ring_bad = [int((r[0].view(np.uint32) != w.view(np.uint32)).sum())
+                for r, w in zip(rings, ref["multiscan/rings"])]
+    rec = {"out_sha": [sha(o) for o in outs] == ref["multiscan/out_sha"].tolist(),
+           "origin": origins == ref["multiscan/origin"].tolist(),
+           "state_sha": state_sha(m) == str(ref["multiscan/state_sha"]),
+           "mirror_sha": m.mirror.digest() == str(ref["multiscan/mirror_sha"])}
+    own = VolumetricMapper(cfg, device=dev)
+    _, tmin, tinc = rings[0]
+    own.process_multiscan_batch(poses, np.stack([r[0] for r in rings]), tmin,
+                                tinc, clouds[0][2], clouds[0][3],
+                                chunk=len(poses))
+    own.flush_stream()
+    own_ok = state_sha(own) == state_sha(m) and own.mirror.digest() == m.mirror.digest()
+    emit({"phase": ph, "part": "multiscan_cloud", "frames": len(poses),
+          "points": [len(c[0]) for c in clouds], "ring_bins_differing": ring_bad,
+          "match_jax": rec, "replay_of_the_rings_matches": own_ok,
+          "launches": got})
+    require(not any(ring_bad), ph, f"ring images differ from the JAX host's "
+            f"in {ring_bad} bins")
+    require(all(rec.values()), ph, f"process_multiscan_cloud differs from JAX: {rec}")
+    require(own_ok, ph, "process_multiscan_cloud differs from the port's replay")
+
+    # (d) the external-observer cloud between two replay calls (fence churn)
+    overrides, world, poses, boxes, ext_cloud, split, chunk = ds.ext_churn_path()
+    cfg = tcfg.cow_lady_config(**overrides)
+    pcs = [world.pointcloud(p, n_rays=ds.EXT_CHURN_RAYS, max_range=8.0, seed=i)
+           for i, p in enumerate(poses)]
+
+    def ext(replay):
+        m = VolumetricMapper(cfg, device=dev)
+        for ll, ur in boxes:
+            m.ext_obs.append(ll, ur)
+        if replay:
+            pts, val = m.stage_pointcloud_batch(pcs)
+            m.process_pointcloud_batch(poses[:split], pts[:split], val[:split],
+                                       chunk=chunk)
+            n = m.process_ext_cloud(ext_cloud)
+            out = m.process_pointcloud_batch(poses[split:], pts[split:],
+                                             val[split:], chunk=chunk).fetch()
+            return m, n, [sha(out)]
+        outs = []
+        for i, (p, c) in enumerate(zip(poses, pcs)):
+            if i == split:
+                n = m.process_ext_cloud(ext_cloud)
+            outs.append(sha(m.process_pointcloud(p, c).fetch()))
+        return m, n, outs
+
+    (mr, nr, rsha), got = _counted(wrappers, lambda: ext(True))
+    launches["ext_cloud"] = got
+    ml, nl, lsha = ext(False)
+    want = ref["ext/out_sha"].tolist()
+    rec = {"replay_state": state_sha(mr) == str(ref["ext/state_sha"]),
+           "replay_last_out": rsha[-1] == want[-1],
+           "loop_frames": sum(a == b for a, b in zip(lsha, want)),
+           "loop_state": state_sha(ml) == str(ref["ext/state_sha"]),
+           "boxes": [nr, nl, int(ref["ext/n_boxes"])],
+           "scanned_frames": mr.replay_scanned_frames}
+    emit({"phase": ph, "part": "ext_cloud", "frames": len(poses),
+          "split": split, "chunk": chunk, "match_jax": rec,
+          "fence_on": ref["ext/fence_on"].tolist(), "launches": got})
+    require(rec["replay_state"] and rec["replay_last_out"], ph,
+            f"the replay with the ext cloud differs from JAX: {rec}")
+    require(rec["loop_frames"] == len(poses) and rec["loop_state"], ph,
+            f"the frame loop with the ext cloud differs from JAX: {rec}")
+    require(nr == nl == int(ref["ext/n_boxes"]), ph, f"box counts {rec['boxes']}")
+    require(mr.replay_scanned_frames > 0, ph, "no frame ran in a replay run")
+
+    total = {k: sum(v[k] for v in launches.values()) for k in wrappers}
+    need = [k for k in wrappers if k != "envelope"]
+    require(all(total[k] > 0 for k in need), ph,
+            f"a kernel of the path never launched: {total}")
+    emit({"phase": ph, "ok": True, "launches": total,
+          "seconds": round(time.perf_counter() - t_phase, 3)})
+    return total
+
+
 def phase_profile(dev, frames, poses, out_dir=None):
     """torch.profiler over the frame loop of a second run of each path:
     device time by kernel, launches, and the device's idle share of the
@@ -2409,14 +2760,26 @@ def main(argv=None) -> int:
           "cuda": torch.version.cuda})
     t0 = time.time()
     try:
-        finish_parent = start_parent_build()
-        try:
-            so, build_s = _build.build()
-        finally:
-            parent = finish_parent()
+        from concurrent.futures import ThreadPoolExecutor
+
+        from gie_mapping_tpu_torch.runtime import native
+
+        # the host library (g++) builds beside the kernels (nvcc), so the
+        # CLI runs below do not time its first build
+        with ThreadPoolExecutor(1) as pool:
+            host = pool.submit(timed_wall, native.build)
+            finish_parent = start_parent_build()
+            try:
+                so, build_s = _build.build()
+            finally:
+                parent = finish_parent()
+            host_so, host_s = host.result()
         _build.library()
+        native.get_lib()
         emit({"phase": "build", "ok": True, "seconds": round(build_s, 3),
-              "library": os.path.relpath(so, ROOT), "parent": parent is not None})
+              "library": os.path.relpath(so, ROOT), "parent": parent is not None,
+              "host_library": os.path.relpath(host_so, ROOT),
+              "host_seconds": round(host_s, 3)})
         results: dict = {}
         phase_kernels(dev, results, parent)
         launches, frames, poses = phase_slice(dev)
@@ -2426,7 +2789,8 @@ def main(argv=None) -> int:
                               phase_replay(dev, all_wrappers()),
                               phase_sensor(dev, all_wrappers(), "depth"),
                               phase_sensor(dev, all_wrappers(), "multiscan"),
-                              phase_dda(dev, all_wrappers())):
+                              phase_dda(dev, all_wrappers()),
+                              phase_cli(dev, all_wrappers(), smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

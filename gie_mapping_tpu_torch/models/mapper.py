@@ -12,9 +12,12 @@ frames ahead and dispatch each run through pipeline.replay_frames;
 `warmup`, the per-frame output (`FrameOutput`, with the CostMap message
 and the planner queries), changed-block streaming to the host mirror
 (`_stream` / `flush_stream`) and the capacity monitor
-(`CapacityWarning`).  The mapper runs on the CUDA device unless it is
-given another.  Not ported yet: the side channels process_ext_cloud and
-process_multiscan_cloud, and checkpoints.
+(`CapacityWarning`); the side channels `process_ext_cloud` (DBSCAN fence
+boxes) and `process_multiscan_cloud` (a raw ring cloud), checkpoints
+(`save` / `load`, the JAX package's file format), the CSV log
+(`log_path`) and the ground-truth RMSE checks (`profile_loc_rms`,
+`profile_glb_rms`).  The mapper runs on the CUDA device unless it is
+given another.
 """
 from __future__ import annotations
 
@@ -26,11 +29,11 @@ import numpy as np
 import torch
 
 from ..map_state import (MapState, canvas_geometry, resolve_device,
-                         shift_block_mask, stream_extract)
+                         shift_block_mask, state_from_numpy, stream_extract)
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
-from ..utils.constants import VB_WIDTH, VOX_OCCUPIED, VOX_UNKNOWN
+from ..utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_OCCUPIED, VOX_UNKNOWN
 from .pipeline import (SENSORS, kernel_limits, merge_frame,
                        pointcloud_sensor, replay_frames, scroll_step)
 
@@ -229,6 +232,14 @@ class _ExtObs:
             self.ll[i] = lls[i]
             self.ur[i] = urs[i]
 
+    def append(self, ll, ur):
+        """Add one box while there is a free slot (silently full, as in the
+        JAX package)."""
+        if self.n < self.cfg.max_ext_obs:
+            self.ll[self.n] = ll
+            self.ur[self.n] = ur
+            self.n += 1
+
     def activate(self, win_ll, win_ur):
         """AABB-vs-window activation; box 0 (the inverted flyable-region
         fence) stays inactive, as in the reference."""
@@ -239,13 +250,16 @@ class _ExtObs:
 
 
 class VolumetricMapper:
-    """The mapping engine: feed poses + point clouds or 2-D scans, read cost
-    maps.  `device` defaults to "cuda" (an error without a card); pass
-    device="cpu" to run the kernels' plain versions on the CPU."""
+    """The mapping engine: feed poses + sensor frames, read cost maps.
+    `device` defaults to "cuda" (an error without a card); pass
+    device="cpu" to run the kernels' plain versions on the CPU.  With
+    `log_path` (or a profile flag) every frame writes a CSV row
+    (runtime/logger.py; in memory when log_path is None)."""
 
     _SELF = object()  # sentinel: "use self._origin"
 
-    def __init__(self, cfg: MapConfig, device=None):
+    def __init__(self, cfg: MapConfig, device=None,
+                 log_path: Optional[str] = None):
         bad = unported_options(cfg)
         if bad:
             raise NotImplementedError(
@@ -283,6 +297,16 @@ class VolumetricMapper:
         self._stall_reported = False
         self._last_leftover = 0
         self._pinned: dict = {}
+        self.logger = None
+        if log_path is not None or cfg.profile_loc_rms or cfg.profile_glb_rms:
+            from ..runtime.logger import CsvLogger
+
+            self.logger = CsvLogger(log_path)
+        self.gt_checker = None
+        if cfg.profile_loc_rms or cfg.profile_glb_rms:
+            from ..runtime.gt_checker import GroundTruthChecker
+
+            self.gt_checker = GroundTruthChecker()
 
     def warmup(self, robot_pos=(0.0, 0.0, 0.0)):
         """Run one empty frame on a throwaway state so the first real frame
@@ -409,6 +433,21 @@ class VolumetricMapper:
         self._queue_capacity_guard(
             out["arch_dropped"],
             out["relax_iters"] if cfg.merge_mode == "relax" else None)
+        # profiling (the reference's visualize(): RMSE check and CSV row):
+        # profile_loc_rms checks the window EDT, profile_glb_rms the
+        # streamed global mirror
+        if self.gt_checker is not None and self.map_ct % cfg.vis_interval == 0:
+            if cfg.profile_loc_rms:
+                self.gt_checker.check_frame(result, cfg.voxel_width,
+                                            self.logger)
+            if cfg.profile_glb_rms and self.mirror is not None:
+                self.flush_stream()  # ingest the in-flight rows first
+                self.gt_checker.check_global(self.mirror, cfg.voxel_width,
+                                             self.logger)
+        if self.logger is not None:
+            self.logger.log_frame(result.ogm_time_ms, result.edt_time_ms,
+                                  self.logger.take_pending_rmse(),
+                                  self._cap_dropped_seen, self._last_leftover)
         return result
 
     # -- device -> host copies ---------------------------------------------
@@ -479,6 +518,80 @@ class VolumetricMapper:
             "stream_leftover": self._last_leftover,
             "stream_stall_ticks": self._stream_stall,
         }
+
+    # -- side channels -------------------------------------------------------
+    def process_ext_cloud(self, points, premap_ll=None, premap_ur=None):
+        """External-observer point cloud -> DBSCAN clusters -> fence boxes
+        (the reference's CB_ext_cld): the box set is reset to the prior map
+        (the default fence unless given), then one AABB per cluster is
+        appended.  Returns the number of boxes."""
+        from ..runtime.clustering import cloud_to_fence_boxes
+
+        if premap_ll is None:
+            premap_ll, premap_ur = [DEFAULT_FENCE_LL], [DEFAULT_FENCE_UR]
+        self.ext_obs.assign(premap_ll, premap_ur)
+        for ll, ur in cloud_to_fence_boxes(points, self.cfg.is_ext_obsv_3D):
+            self.ext_obs.append(ll, ur)
+        return self.ext_obs.n
+
+    def process_multiscan_cloud(self, proj: geo.Projection, points, ring_idx,
+                                ring_num=16, scan_num=360,
+                                phi_min=-0.2617994, phi_inc=0.0349066):
+        """Multi-ring LiDAR frame from a raw cloud (points [N, 3] in the
+        sensor frame, ring_idx [N]): binned into range rings on the host
+        (runtime/rings.py), then process_multiscan."""
+        from ..runtime.rings import cloud_to_rings
+
+        rings_img, tmin, tinc = cloud_to_rings(points, ring_idx, ring_num,
+                                               scan_num)
+        return self.process_multiscan(proj, rings_img, tmin, tinc, phi_min,
+                                      phi_inc)
+
+    # -- checkpoints -----------------------------------------------------------
+    CHECKPOINT_FIELDS = ("origin_blk", "occ_val", "vox_type", "dist_sq", "coc",
+                         "present", "arch_keys", "n_arch", "a_packed",
+                         "arch_dropped")
+
+    def save(self, path: str):
+        """Write the map to a compressed npz in the JAX package's format
+        (version 3: the same keys and dtypes, a_packed as uint32), so a file
+        loads in either package."""
+        arrays = {}
+        for k in self.CHECKPOINT_FIELDS:
+            a = getattr(self.state, k).cpu().numpy()
+            arrays[f"state/{k}"] = a.view(np.uint32) if k == "a_packed" else a
+        arrays["meta/map_ct"] = np.asarray(self.map_ct)
+        arrays["meta/version"] = np.asarray(3)  # v3: relative coc anchors
+        np.savez_compressed(path, **arrays)
+
+    def load(self, path: str):
+        """Read a version-3 checkpoint of either package (the flat [B, 1536]
+        archive or the older [B, 512, 3]) onto the mapper's device.  As in
+        the JAX package, the per-cell distance bound and the phase-1 cache
+        are not stored: the bound resets to EMPTY_VALUE and the cache is
+        marked stale (the gate's first frame runs its full branch), and the
+        next frame re-places the canvas."""
+        raw = np.load(path)
+        version = int(raw["meta/version"]) if "meta/version" in raw.files else 1
+        if version != 3:
+            raise ValueError(
+                f"checkpoint format v{version} not supported (current: v3 — "
+                "canvas/block-relative coc anchors)")
+        arrays = {k.split("/", 1)[1]: raw[k] for k in raw.files
+                  if k.startswith("state/")}
+        ap = arrays["a_packed"]
+        if ap.ndim == 3:  # [B, 512, 3] from before the flat-row archive
+            arrays["a_packed"] = ap.reshape(ap.shape[0], -1)
+        arrays["dmax_cell"] = np.full(
+            tuple(c // 4 for c in self.cfg.canvas_size), EMPTY_VALUE, np.int32)
+        arrays["p1c"] = np.zeros((1, 1, 1), np.int32)  # replaced below
+        arrays["p1c_ok"] = np.zeros((), bool)
+        p1c = self.state.p1c  # kept, as in the JAX package (marked stale)
+        self.state = state_from_numpy(arrays, self.device)
+        self.state.p1c = p1c
+        self.map_ct = int(raw["meta/map_ct"])
+        self._origin = None  # the next frame re-syncs the canvas
+        return self
 
     # -- changed-block streaming ---------------------------------------------
     def _stream(self, out, origin_blk):
@@ -847,7 +960,8 @@ class VolumetricMapper:
                 out, origin=last[0].astype(np.float32) * cfg.voxel_width,
                 pvt=last[0])
             result.per_frame = per_frame
-            result.edt_time_ms = (time.perf_counter() - t0) * 1e3 / n
+            dt = (time.perf_counter() - t0) * 1e3 / n
+            result.edt_time_ms = dt  # the run's dispatch time per frame
             self.last_output = result
             if cfg.display_glb_edt or cfg.display_glb_ogm:
                 # once per run, whatever vis_interval says
@@ -862,5 +976,11 @@ class VolumetricMapper:
                 per_frame["arch_dropped"][-1],
                 int(per_frame["relax_iters"].max())
                 if cfg.merge_mode == "relax" else None)
+            if self.logger is not None:  # a row per frame, no RMSE check
+                for _ in range(n):
+                    self.logger.log_frame(0.0, dt,
+                                          self.logger.take_pending_rmse(),
+                                          self._cap_dropped_seen,
+                                          self._last_leftover)
             i += n
         return result

@@ -580,39 +580,46 @@ def pointcloud_sensor(points, pts_valid, rot, origin, pvt, *, cfg: MapConfig,
                                  n_theta=nt, n_phi=np_, **_sensor_kw(cfg))
 
 
-def scan_sensor(ranges, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+def scan_sensor(ranges, rot, origin, s1, s2, pvt, *, cfg: MapConfig,
+                replay: bool = False):
     """One frame's 2-D LiDAR model: ranges [n_beams] float32 on the device;
     rot / origin float32 (host numpy); the beam angles as the JAX package
     packs them in pose rows 7-8, s1 = (theta_min, theta_inc, ...), float32;
-    pvt host ints.  Returns (inst_type, ray_count = zeros)."""
+    pvt host ints; `replay` rounds as the JAX replay's scan program does
+    (scan_sensors._sensor_offsets).  Returns (inst_type, ray_count =
+    zeros)."""
     dev = ranges.device
     f = [float(np.float32(v)) for v in s1[:2]]
     inst = hokuyo_update(_pose(rot, origin, dev), ScanParam(*f, ranges), pvt,
-                         **_sensor_kw(cfg))
+                         replay=replay, **_sensor_kw(cfg))
     return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
 
 
-def depth_sensor(depth, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+def depth_sensor(depth, rot, origin, s1, s2, pvt, *, cfg: MapConfig,
+                 replay: bool = False):
     """One frame's depth-camera model: depth [rows, cols] float32 on the
     device; the intrinsics as the JAX package packs them in pose rows 7-8,
-    s1 = (fx, fy, cx) and s2 = (cy, ...), float32.  Returns (inst_type,
-    ray_count = zeros)."""
+    s1 = (fx, fy, cx) and s2 = (cy, ...), float32; `replay` as in
+    scan_sensor.  Returns (inst_type, ray_count = zeros)."""
     dev = depth.device
     f = [float(np.float32(v)) for v in (*s1[:3], s2[0])]
     inst = realsense_update(_pose(rot, origin, dev), CamParam(*f, depth), pvt,
-                            valid_nan=cfg.valid_nan, **_sensor_kw(cfg))
+                            valid_nan=cfg.valid_nan, replay=replay,
+                            **_sensor_kw(cfg))
     return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
 
 
-def multiscan_sensor(rings, rot, origin, s1, s2, pvt, *, cfg: MapConfig):
+def multiscan_sensor(rings, rot, origin, s1, s2, pvt, *, cfg: MapConfig,
+                     replay: bool = False):
     """One frame's multi-ring LiDAR model: rings [ring_num, scan_num]
     float32 on the device; the bin geometry as the JAX package packs it in
     pose rows 7-8, s1 = (theta_min, theta_inc, phi_min) and s2 = (phi_inc,
-    ...), float32.  Returns (inst_type, ray_count = zeros)."""
+    ...), float32; `replay` as in scan_sensor.  Returns (inst_type,
+    ray_count = zeros)."""
     dev = rings.device
     f = [float(np.float32(v)) for v in (*s1[:3], s2[0])]
     inst = vlp16_update(_pose(rot, origin, dev), MulScanParam(*f, rings), pvt,
-                        **_sensor_kw(cfg))
+                        replay=replay, **_sensor_kw(cfg))
     return inst, torch.zeros(cfg.local_size, dtype=torch.int32, device=dev)
 
 
@@ -680,7 +687,8 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
         else:
             inst, cnt = SENSORS[sensor_kind](sensor_data[k], rot,
                                              sensor_origin, poses[k, 7],
-                                             poses[k, 8], pvt, cfg=cfg)
+                                             poses[k, 8], pvt, cfg=cfg,
+                                             replay=True)
         state, out = merge_frame(
             state, inst, cnt, pvt, origin, off, fence, cfg=cfg,
             input_pointcloud=input_pointcloud, use_fence=use_fence,

@@ -10,7 +10,8 @@ the JAX package does on the CPU (its TPU one-hot lookup is not carried).
 
 The beam index comes from float trigonometry, so every rounding step
 follows the JAX CPU reference's jitted frame program: the window position
-minus the sensor origin is one fused multiply-add (c * w - o), the frame
+minus the sensor origin is one fused multiply-add (c * w - o) in x and y
+and the rounded height minus o in z (_sensor_offsets), the frame
 change is XLA's dot (geometry.Projection.to_local), atan2 is the C library's
 atan2f (kernels/carve.py::atan2f_exact), every square root is correctly
 rounded, and the beam's divide is an IEEE division by a tensor.
@@ -98,6 +99,22 @@ def _window_coords(pvt, local_size, device=None):
     return (loc + torch.as_tensor(np.asarray(pvt, np.int32), device=device)).float()
 
 
+def _sensor_offsets(c, glb_z, vw, trans, replay):
+    """World offsets (c * w - t) of the window voxels from the sensor,
+    rounded as the JAX reference's sensor programs round them: fma(c, w, -t)
+    in x and y.  In z the per-frame program's vector loop computes the
+    voxel's height c_z * w once (`glb_z`, which its height test also reads)
+    and subtracts t_z from the rounded product; its scalar tail (the last
+    voxels mod 8, as in Projection.to_local) and the replay's scan program
+    (`replay`) fuse z as well."""
+    d = fma_f32(c, vw, -trans)
+    if not replay:
+        flat, z = d.view(-1, 3), glb_z.reshape(-1)
+        n_full = flat.shape[0] // 8 * 8
+        flat[:n_full, 2] = z[:n_full] - trans[2]
+    return d
+
+
 def _robot_sphere_mask(local_size, robot_r2_grids, device=None):
     """Voxels within the robot radius of the window centre."""
     loc = geo.local_coord_grid(local_size, device)
@@ -108,7 +125,7 @@ def _robot_sphere_mask(local_size, robot_r2_grids, device=None):
 
 
 def beam_geometry(proj: geo.Projection, param: ScanParam, pvt, local_size,
-                  voxel_width):
+                  voxel_width, replay: bool = False):
     """Per window voxel: its world height (float32 [X, Y, Z]), its position
     in the sensor frame (float32 [X, Y, Z, 3]), its beam index (int32,
     wrapped into [0, scan_num)) and its planar range (float32, -1 off the
@@ -119,7 +136,7 @@ def beam_geometry(proj: geo.Projection, param: ScanParam, pvt, local_size,
     c = _window_coords(pvt, local_size, dev)
     vw = _f32(voxel_width, dev)
     glb_z = c[..., 2] * vw
-    local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
+    local_pos = proj.to_local(_sensor_offsets(c, glb_z, vw, proj.trans, replay))
     lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
 
     theta = atan2f_exact(ly, lx)
@@ -134,15 +151,17 @@ def beam_geometry(proj: geo.Projection, param: ScanParam, pvt, local_size,
 
 def hokuyo_update(proj: geo.Projection, param: ScanParam, pvt, *, local_size,
                   voxel_width, ogm_min_h, ogm_max_h, for_motion_planner: bool,
-                  robot_r2_grids: int) -> torch.Tensor:
-    """2-D LiDAR inverse model over the window at pivot `pvt` (host ints).
+                  robot_r2_grids: int, replay: bool = False) -> torch.Tensor:
+    """2-D LiDAR inverse model over the window at pivot `pvt` (host ints);
+    `replay` rounds as the JAX replay's scan program (_sensor_offsets).
     proj's rot and trans and param.ranges lie on the device the result
     takes.  Returns inst_type int8 [X, Y, Z]."""
     local_size = tuple(int(s) for s in local_size)
     dev = param.ranges.device
     proj = proj.to(dev)
     glb_z, _, theta_idx, idea_depth = beam_geometry(proj, param, pvt,
-                                                    local_size, voxel_width)
+                                                    local_size, voxel_width,
+                                                    replay)
 
     real_depth = param.ranges[theta_idx.long()]
     meas_ok = (idea_depth >= 0) & ~torch.isnan(real_depth) & (real_depth > 0.3)
@@ -166,7 +185,7 @@ def _finish(occ, free, local_size, for_motion_planner, robot_r2_grids, dev):
 
 
 def pixel_geometry(proj: geo.Projection, param: CamParam, pvt, local_size,
-                   voxel_width):
+                   voxel_width, replay: bool = False):
     """Per window voxel: its world height, its forward distance in the
     sensor frame (x) and its pixel column and row (int32, unclipped),
     rounded as the JAX reference's jitted program rounds them: the frame
@@ -177,7 +196,7 @@ def pixel_geometry(proj: geo.Projection, param: CamParam, pvt, local_size,
     c = _window_coords(pvt, local_size, dev)
     vw = _f32(voxel_width, dev)
     glb_z = c[..., 2] * vw
-    local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
+    local_pos = proj.to_local(_sensor_offsets(c, glb_z, vw, proj.trans, replay))
     lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
     eps = _f32(1e-6, dev)
     safe = torch.where(lx.abs() > eps, lx, eps)
@@ -191,7 +210,8 @@ def pixel_geometry(proj: geo.Projection, param: CamParam, pvt, local_size,
 def realsense_update(proj: geo.Projection, param: CamParam, pvt, *,
                      local_size, voxel_width, ogm_min_h, ogm_max_h,
                      for_motion_planner: bool, robot_r2_grids: int,
-                     valid_nan: bool = False) -> torch.Tensor:
+                     valid_nan: bool = False,
+                     replay: bool = False) -> torch.Tensor:
     """Depth-camera inverse model over the window at pivot `pvt` (host
     ints).  Sensor frame: x forward (depth), y left, z up.  A NaN pixel is
     a miss (valid_nan: far, SENS_FAR_DIST; else unmeasured); an +Inf pixel
@@ -203,7 +223,7 @@ def realsense_update(proj: geo.Projection, param: CamParam, pvt, *,
     proj = proj.to(dev)
     rows, cols = param.depth.shape
     glb_z, idea, px, py = pixel_geometry(proj, param, pvt, local_size,
-                                         voxel_width)
+                                         voxel_width, replay)
     in_frustum = ((idea > 0.3) & (idea <= 6.0) & (px >= 0) & (px < cols)
                   & (py >= 0) & (py < rows))
     # the NaN policy on the image side, as the JAX package applies it
@@ -220,7 +240,7 @@ def realsense_update(proj: geo.Projection, param: CamParam, pvt, *,
 
 
 def ring_geometry(proj: geo.Projection, param: MulScanParam, pvt, local_size,
-                  voxel_width):
+                  voxel_width, replay: bool = False):
     """Per window voxel: its world height, its azimuth bin (wrapped into
     [0, scan_num)) and elevation bin (int32, unclipped), its horizontal
     range and its distance to the axis of the beam of its bins' angles
@@ -237,7 +257,7 @@ def ring_geometry(proj: geo.Projection, param: MulScanParam, pvt, local_size,
     c = _window_coords(pvt, local_size, dev)
     vw = _f32(voxel_width, dev)
     glb_z = c[..., 2] * vw
-    local_pos = proj.to_local(fma_f32(c, vw, -proj.trans))
+    local_pos = proj.to_local(_sensor_offsets(c, glb_z, vw, proj.trans, replay))
     lx, ly, lz = local_pos[..., 0], local_pos[..., 1], local_pos[..., 2]
 
     theta = atan2f_exact(ly, lx)
@@ -265,7 +285,8 @@ def ring_geometry(proj: geo.Projection, param: MulScanParam, pvt, local_size,
 
 def vlp16_update(proj: geo.Projection, param: MulScanParam, pvt, *,
                  local_size, voxel_width, ogm_min_h, ogm_max_h,
-                 for_motion_planner: bool, robot_r2_grids: int) -> torch.Tensor:
+                 for_motion_planner: bool, robot_r2_grids: int,
+                 replay: bool = False) -> torch.Tensor:
     """Multi-ring spherical-projection inverse model over the window at
     pivot `pvt` (host ints): a voxel is compared with the range of its
     (elevation, azimuth) bin when it lies within one voxel width of that
@@ -276,7 +297,7 @@ def vlp16_update(proj: geo.Projection, param: MulScanParam, pvt, *,
     dev = param.rings.device
     proj = proj.to(dev)
     glb_z, theta_idx, phi_idx, range_hor, dist2ray = ring_geometry(
-        proj, param, pvt, local_size, voxel_width)
+        proj, param, pvt, local_size, voxel_width, replay)
     phi_ok = (phi_idx >= 0) & (phi_idx < param.ring_num)
     vw = float(np.float32(voxel_width))
     idea = torch.where(phi_ok & (dist2ray < vw), range_hor, -1.0)

@@ -392,3 +392,91 @@ def ring_frames(world, poses):
     phi_inc)) of bench_suite.py's 16-ring LiDAR at each pose."""
     scans = [world.multiscan(p) for p in poses]
     return np.stack([s[0] for s in scans]), scans[0][1:]
+
+
+def save_frames_npz(path, frames):
+    """Persist a replayable frame sequence (the bag converter's output):
+    frame i's field k is stored as "{i:05d}/{k}" (a copy of the JAX
+    package's, so a file moves between the two)."""
+    flat = {}
+    for i, fr in enumerate(frames):
+        for k, v in fr.items():
+            flat[f"{i:05d}/{k}"] = v
+    np.savez_compressed(path, **flat)
+
+
+def load_frames_npz(path):
+    """The frames of a save_frames_npz file, as a list of dicts."""
+    raw = np.load(path, allow_pickle=False)
+    frames: dict = {}
+    for k in raw.files:
+        idx, field = k.split("/", 1)
+        frames.setdefault(int(idx), {})[field] = raw[k]
+    return [frames[i] for i in sorted(frames)]
+
+
+def ring_cloud(world, proj, ring_num=16, scan_num=360):
+    """(points [N, 3] float32 in the sensor frame, ring ids [N] int32,
+    phi_min, phi_inc): a raw multi-ring LiDAR cloud at `proj`, one point per
+    hit bin of world.multiscan's ring image (at the bin's azimuth and
+    elevation, at its horizontal range), for process_multiscan_cloud."""
+    img, tmin, tinc, pmin, pinc = world.multiscan(proj, ring_num=ring_num,
+                                                  scan_num=scan_num)
+    rr, tt = np.meshgrid(np.arange(ring_num), np.arange(scan_num),
+                         indexing="ij")
+    ok = ~np.isnan(img)
+    theta = tmin + tt[ok] * tinc
+    phi = pmin + rr[ok] * pinc
+    horiz = img[ok]
+    pts = np.stack([horiz * np.cos(theta), horiz * np.sin(theta),
+                    horiz * np.tan(phi)], -1).astype(np.float32)
+    return pts, rr[ok].astype(np.int32), pmin, pinc
+
+
+def multiscan_cloud_path(n_frames=4):
+    """(world, poses) of the raw ring-cloud path: the laser3D path's world
+    and the first `n_frames` poses of its circle (laser3d_bench); frame i
+    is ring_cloud(world, poses[i])."""
+    _, world, loop, _, _ = laser3d_bench()
+    return world, loop[:n_frames]
+
+
+def there_and_back(n, step, start, y=0.0, z=1.2):
+    """n poses facing +x along y = `y`: out from x = `start` in steps of
+    `step` for n // 2 steps, then back the same way."""
+    half = n // 2
+    xs = [start + step * min(i, half) - step * max(0, i - half)
+          for i in range(n)]
+    return [geo.Projection.from_pose(np.asarray([x, y, z], np.float32),
+                                     (1.0, 0.0, 0.0, 0.0)) for x in xs]
+
+
+EXT_CHURN_RAYS = 8192
+
+
+def ext_churn_path():
+    """The fence-churn scenario at the cow_lady preset's width: (MapConfig
+    overrides, world, poses, boxes, ext_cloud, split, chunk).  Sixteen
+    there-and-back poses from x = -4.4 m in 1.1 m steps (the 10 m window
+    scrolls every frame); two fence boxes `boxes` [(ll, ur)] beyond each
+    end of the path, appended to the default fence, whose activation
+    toggles as the window passes them; and an external-observer cluster
+    `ext_cloud` (8 points within 5 cm) near the path.  The frames before
+    `split` replay in one process_pointcloud_batch call with `chunk`, then
+    process_ext_cloud(ext_cloud) resets the boxes to the default fence plus
+    the cluster's box, then the rest replay in a second call.  Frame i's
+    cloud is world.pointcloud(poses[i], n_rays=EXT_CHURN_RAYS,
+    max_range=8.0, seed=i); fuse_raycast is on (the replay needs it) and
+    streaming off."""
+    overrides = dict(max_raycast_points=EXT_CHURN_RAYS, fuse_raycast=True,
+                     display_glb_edt=False, display_glb_ogm=False)
+    world = BoxWorld.corridor(seed=3, n_pillars=8, extent=6.0, height=2.5)
+    poses = there_and_back(16, step=1.1, start=-4.4)
+    boxes = [(np.asarray([8.4, -0.5, 0.0], np.float32),
+              np.asarray([9.0, 0.8, 1.4], np.float32)),
+             (np.asarray([-9.6, -0.4, 0.0], np.float32),
+              np.asarray([-9.0, 0.6, 1.2], np.float32))]
+    rng = np.random.default_rng(9)
+    ext_cloud = (np.asarray([1.0, 0.6, 0.5], np.float32)
+                 + rng.uniform(-0.05, 0.05, (8, 3)).astype(np.float32))
+    return overrides, world, poses, boxes, ext_cloud, 9, 4

@@ -6,9 +6,9 @@ benchmark case presets).  It is copied rather than imported because the JAX
 package's `MapConfig.__post_init__` imports its EDT module, which imports
 JAX; tests/test_torch_config.py holds the two copies equal.
 
-The port runs only the default engine path so far; `unported_options`
-names every field value it cannot run yet, and the port's mapper refuses a
-config that sets one.
+The port runs only the default engine path; `unported_options` names
+every field value it does not run (the JAX package's A/B toggles), and the
+port's mapper refuses a config that sets one.
 """
 from __future__ import annotations
 
@@ -37,7 +37,7 @@ MAX_HALO_GRIDS = 96
 # that validation matches without importing JAX.  The port runs "fusepay".
 _ENV_VARIANTS = ("base", "mono", "fusepay", "mono+fusepay", "cf", "cf_base")
 
-# The value (or values) of each engine-path field that the port runs so far.
+# The value (or values) of each engine-path field that the port runs.
 PORTED_VALUES = {
     "edt_env_variant": "fusepay",
     "edt_phase1": "pallas",
@@ -46,8 +46,6 @@ PORTED_VALUES = {
     "merge_mode": ("canvas_edt", "relax"),
     "raycast_mode": ("projective", "dda"),
     "fuse_raycast": (False, True),
-    "profile_loc_rms": False,
-    "profile_glb_rms": False,
 }
 
 

@@ -126,3 +126,35 @@ def inside_volume(c: torch.Tensor, size) -> torch.Tensor:
     """Boolean mask: coordinate triple within [0, size)."""
     size = torch.as_tensor(size, dtype=torch.int32, device=c.device)
     return ((c >= 0) & (c < size)).all(dim=-1)
+
+
+def rot_to_quat(R):
+    """3x3 rotation matrix to quaternion (w,x,y,z) (numpy, host-side; a
+    copy of the JAX package's).
+
+    Shepperd's method: picks the largest of the four squared components
+    before dividing, so it is stable for every rotation."""
+    R = np.asarray(R, np.float64)
+    tr = R[0, 0] + R[1, 1] + R[2, 2]
+    cand = np.array([tr, R[0, 0], R[1, 1], R[2, 2]])
+    k = int(np.argmax(cand))
+    if k == 0:
+        s = np.sqrt(1.0 + tr) * 2
+        q = [0.25 * s, (R[2, 1] - R[1, 2]) / s, (R[0, 2] - R[2, 0]) / s,
+             (R[1, 0] - R[0, 1]) / s]
+    elif k == 1:
+        s = np.sqrt(1.0 + R[0, 0] - R[1, 1] - R[2, 2]) * 2
+        q = [(R[2, 1] - R[1, 2]) / s, 0.25 * s, (R[0, 1] + R[1, 0]) / s,
+             (R[0, 2] + R[2, 0]) / s]
+    elif k == 2:
+        s = np.sqrt(1.0 - R[0, 0] + R[1, 1] - R[2, 2]) * 2
+        q = [(R[0, 2] - R[2, 0]) / s, (R[0, 1] + R[1, 0]) / s, 0.25 * s,
+             (R[1, 2] + R[2, 1]) / s]
+    else:
+        s = np.sqrt(1.0 - R[0, 0] - R[1, 1] + R[2, 2]) * 2
+        q = [(R[1, 0] - R[0, 1]) / s, (R[0, 2] + R[2, 0]) / s,
+             (R[1, 2] + R[2, 1]) / s, 0.25 * s]
+    q = np.asarray(q, np.float64)
+    if q[0] < 0:
+        q = -q
+    return (q / np.linalg.norm(q)).astype(np.float32)

@@ -3,7 +3,7 @@ through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
 these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
-        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda]
+        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -63,7 +63,11 @@ process_depth / process_multiscan, then the closed 40-pose circle in one
 batch call with chunk 40.  Each holds the window-output sha256, origin and
 gate level of the 2 online frames and, under `batch_`, what the replay
 part holds (state, last outputs, payload8, counters, every run's
-per_frame); laser3d also the host mirror's digest.  The script asserts
+per_frame); laser3d also the host mirror's digest; both the final state
+and last outputs of the same frames one by one on a fresh mapper
+(`loop_state_sha`, `loop_out_sha`: the per-frame program rounds the
+sensor's height offset unlike the replay's scan, so at depthcam's pose 22
+the two end apart).  The script asserts
 that the batch scrolls inside a run and drops nothing from the archive.
 tests/fixtures/torch_port_dda_ref.npz, the DDA path (datasets.dda_path:
 the uav_raycast_fine preset with raycast_mode "dda", streaming on, 16384
@@ -72,11 +76,20 @@ origin, whether it scrolled, the gate level, the voxel type counts and
 the window-output sha256; the final state sha256, map_ct and the host
 mirror's digest.  It asserts a scroll and no archive drop.  depthcam takes
 about ten minutes on the CPU, the other two a few.
+
+tests/fixtures/torch_port_cli_ref.npz, chip_smoke.py's cli phase
+(run_cli): the committed bags' converted frames, every preset through the
+JAX package's CLI at chip_smoke's argv (four frames, a checkpoint, a CSV;
+cow_lady again with --batch 4, scan2D again with --profile), a resume
+from a checkpoint, the raw ring-cloud channel at the laser3D preset and
+the external-observer channel in the fence-churn scenario at the
+cow_lady preset's width.
 """
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import json
 import os
 import sys
 import time
@@ -92,6 +105,7 @@ OUT_REPLAY = os.path.join(HERE, "torch_port_replay_ref.npz")
 OUT_DEPTHCAM = os.path.join(HERE, "torch_port_depthcam_ref.npz")
 OUT_LASER3D = os.path.join(HERE, "torch_port_laser3d_ref.npz")
 OUT_DDA = os.path.join(HERE, "torch_port_dda_ref.npz")
+OUT_CLI = os.path.join(HERE, "torch_port_cli_ref.npz")
 SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine
@@ -357,7 +371,7 @@ def run_sensor(path, kind):
     from gie_mapping_tpu.models.mapper import VolumetricMapper
     from gie_mapping_tpu.utils import geometry as geo
     from gie_mapping_tpu.utils import config as jcfg
-    from gie_mapping_tpu_torch.map_state import output_digest
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
     from gie_mapping_tpu_torch.runtime import datasets as ds
     from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
 
@@ -400,6 +414,22 @@ def run_sensor(path, kind):
         arrays["mirror_blocks"] = np.asarray(len(mapper.mirror))
     assert mapper.replay_scanned_scrolls >= 1, mapper.replay_scanned_scrolls
     assert mapper.capacity_report()["arch_dropped"] == 0
+    # the same frames one by one on a fresh mapper: the per-frame program
+    # rounds the sensor's height offset unlike the replay's scan program
+    # (ROADMAP C), so the two may end apart
+    loop = VolumetricMapper(cfg)
+    one = loop.process_depth if kind == "depth" else loop.process_multiscan
+    for i in range(len(projs)):
+        lo = one(projs[i], data[i], *sc)
+    lo = lo.fetch()
+    if loop.mirror is not None:
+        loop.flush_stream()
+    arrays["loop_state_sha"] = np.asarray(state_digest(_state(loop)))
+    arrays["loop_out_sha"] = np.asarray(output_digest(lo.glb_type, lo.dist_sq,
+                                                      lo.coc))
+    print("frame loop equals the replay:",
+          str(arrays["loop_state_sha"]) == str(arrays["batch_state_sha"]),
+          f"({time.time() - t0:.1f} s)", flush=True)
     np.savez_compressed(path, **arrays)
     print("written:", path, os.path.getsize(path), "bytes",
           f"({time.time() - t0:.1f} s)")
@@ -454,11 +484,184 @@ def run_dda(path):
           f"({time.time() - t0:.1f} s)")
 
 
+def _jax_cli():
+    """The JAX package's CLI module, with the persistent compilation cache
+    it turns on at import turned off again (nothing is written outside the
+    checkout)."""
+    import jax
+
+    import gie_mapping_tpu.cli as jcli
+
+    jax.config.update("jax_compilation_cache_dir", None)
+    return jcli
+
+
+def _jax_dispatch(mapper, proj, kind, payload):
+    if kind == "pointcloud":
+        return mapper.process_pointcloud(proj, payload)
+    return {"scan": mapper.process_scan2d, "depth": mapper.process_depth,
+            "multiscan": mapper.process_multiscan}[kind](proj, *payload)
+
+
+def run_cli(path):
+    """chip_smoke.py's cli phase through the JAX package; writes `path`:
+
+    bag/<bag>/<i>/<field>: the committed bags' frames (bag_to_frames);
+    cli/<tag>/<count>, cli/<tag>/sha/<key>, cli/<tag>/csv_rows and, for the
+    profiled run, cli/<tag>/rmse: each run of chip_smoke.CLI_RUNS through
+    gie_mapping_tpu.cli.main at the same argv (plus --cpu): the summary's
+    counts, the sha256 of each checkpoint array, the CSV's row count and
+    RMSE column;
+    resume/*: cow_lady's synthetic_frames(cfg, 6) uninterrupted and with a
+    save after frame 3 and a load into a fresh mapper (per-frame window
+    output sha256 of frames 4-5, the final state sha256);
+    multiscan/*: datasets.multiscan_cloud_path through
+    process_multiscan_cloud at the laser3D preset (each frame's ring
+    image, output sha256 and origin; the final state and mirror);
+    ext/*: datasets.ext_churn_path through the per-frame loop, the ext cloud
+    given before frame `split` (each frame's output sha256, the final state
+    sha256, the box count)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import jax
+
+    import chip_smoke as cs
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.runtime import rosbag as jrosbag
+    from gie_mapping_tpu.runtime.rings import cloud_to_rings
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils import config as jcfg
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+    from gie_mapping_tpu_torch.runtime import datasets as ds
+    from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
+
+    t0 = time.time()
+    arrays = {}
+    for name, sensor, odom in cs.BAGS:
+        got = cs.bag_frames(jrosbag, os.path.join(HERE, name), sensor, odom)
+        assert got, name
+        for k, v in got.items():
+            arrays[f"bag/{name}/{k}"] = v
+    jcli = _jax_cli()
+    for tag, case, extra in cs.CLI_RUNS:
+        with tempfile.TemporaryDirectory() as d:
+            argv = cs.cli_argv(case, extra, d)
+            buf = io.StringIO()
+            old = sys.argv
+            sys.argv = ["gie-tpu-run", *argv, "--cpu"]
+            try:
+                with contextlib.redirect_stdout(buf):
+                    jcli.main()
+            finally:
+                sys.argv = old
+            summary = json.loads(buf.getvalue().strip().splitlines()[-1])
+            for k in cs.CLI_COUNTS:
+                arrays[f"cli/{tag}/{k}"] = np.asarray(summary[k])
+            for k, v in cs.checkpoint_digests(argv[argv.index("--save") + 1]).items():
+                arrays[f"cli/{tag}/sha/{k}"] = np.asarray(v)
+            rows = cs.csv_rows(argv[argv.index("--log") + 1])
+            arrays[f"cli/{tag}/csv_rows"] = np.asarray(len(rows))
+            if "--profile" in extra:
+                arrays[f"cli/{tag}/rmse"] = np.asarray([r[2] for r in rows])
+                assert any(float(r[2]) >= 0 for r in rows), rows
+            assert summary["frames"] == len(rows) == cs.CLI_FRAMES, summary
+            print(f"cli {tag}: {summary} ({time.time() - t0:.1f} s)", flush=True)
+
+    # resume: save after RESUME_SPLIT frames, load into a fresh mapper
+    cfg = jcfg.cow_lady_config()
+    frames = list(jcli.synthetic_frames(cfg, cs.RESUME_FRAMES))
+    full = VolumetricMapper(cfg)
+    full_sha = []
+    for proj, (kind, payload) in frames:
+        out = _jax_dispatch(full, proj, kind, payload).fetch()
+        full_sha.append(output_digest(out.glb_type, out.dist_sq, out.coc))
+    full.flush_stream()
+    first = VolumetricMapper(cfg)
+    for proj, (kind, payload) in frames[:cs.RESUME_SPLIT]:
+        _jax_dispatch(first, proj, kind, payload)
+    resumed_sha = []
+    with tempfile.TemporaryDirectory() as d:
+        ckpt = os.path.join(d, "map.npz")
+        first.save(ckpt)
+        arrays["resume/ckpt_sha"] = np.asarray(
+            sorted(cs.checkpoint_digests(ckpt).items()))
+        second = VolumetricMapper(cfg).load(ckpt)
+    for proj, (kind, payload) in frames[cs.RESUME_SPLIT:]:
+        out = _jax_dispatch(second, proj, kind, payload).fetch()
+        resumed_sha.append(output_digest(out.glb_type, out.dist_sq, out.coc))
+    arrays["resume/full_out_sha"] = np.asarray(full_sha)
+    arrays["resume/full_state_sha"] = np.asarray(state_digest(_state(full)))
+    arrays["resume/out_sha"] = np.asarray(resumed_sha)
+    arrays["resume/state_sha"] = np.asarray(state_digest(_state(second)))
+    arrays["resume/map_ct"] = np.asarray(second.map_ct)
+    print(f"resume: outputs equal to the uninterrupted run: "
+          f"{resumed_sha == full_sha[cs.RESUME_SPLIT:]}, state: "
+          f"{arrays['resume/state_sha'] == arrays['resume/full_state_sha']} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+
+    # the raw ring cloud at the laser3D preset
+    cfg = jcfg.uav_laser3d_config()
+    world, poses = ds.multiscan_cloud_path()
+    m = VolumetricMapper(cfg)
+    rec = {"rings": [], "out_sha": [], "origin": []}
+    for p in poses:
+        proj = geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+        pts, ring, pmin, pinc = ds.ring_cloud(world, p)
+        rec["rings"].append(cloud_to_rings(pts, ring)[0])
+        out = m.process_multiscan_cloud(proj, pts, ring, phi_min=pmin,
+                                        phi_inc=pinc).fetch()
+        rec["out_sha"].append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        rec["origin"].append(np.asarray(m._origin, np.int32))
+    m.flush_stream()
+    for k, v in rec.items():
+        arrays[f"multiscan/{k}"] = np.asarray(v)
+    arrays["multiscan/state_sha"] = np.asarray(state_digest(_state(m)))
+    arrays["multiscan/mirror_sha"] = np.asarray(mirror_digest(m.mirror.blocks))
+    print(f"multiscan cloud: {len(poses)} frames ({time.time() - t0:.1f} s)",
+          flush=True)
+
+    # the fence churn with an ext cloud, per frame (the reference for both
+    # of the port's forms: its replay and its frame loop)
+    overrides, world, poses, boxes, ext_cloud, split, _ = ds.ext_churn_path()
+    cfg = jcfg.cow_lady_config(**overrides)
+    m = VolumetricMapper(cfg)
+    for ll, ur in boxes:
+        m.ext_obs.append(ll, ur)
+    sha, sigs = [], []
+    for i, p in enumerate(poses):
+        if i == split:
+            # the JAX mapper's cached fence arrays may alias ext_obs's
+            # buffers, which process_ext_cloud rewrites in place: let the
+            # frames in flight finish first (ROADMAP C)
+            jax.block_until_ready(m.state)
+            n_boxes = m.process_ext_cloud(ext_cloud)
+        proj = geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+        pts = world.pointcloud(p, n_rays=ds.EXT_CHURN_RAYS, max_range=8.0,
+                               seed=i)
+        pvt = geo.calculate_pivot(np.asarray(proj.trans), cfg.voxel_width,
+                                  cfg.local_size)
+        sigs.append(m._fence_args(pvt)[1])
+        out = m.process_pointcloud(proj, pts).fetch()
+        sha.append(output_digest(out.glb_type, out.dist_sq, out.coc))
+    assert n_boxes == 2, n_boxes
+    arrays["ext/out_sha"] = np.asarray(sha)
+    arrays["ext/state_sha"] = np.asarray(state_digest(_state(m)))
+    arrays["ext/n_boxes"] = np.asarray(n_boxes)
+    arrays["ext/fence_on"] = np.asarray(sigs)
+    print(f"ext churn: fence on per frame {sigs} ({time.time() - t0:.1f} s)",
+          flush=True)
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
                                        "replay", "depthcam", "laser3d",
-                                       "dda"))
+                                       "dda", "cli"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
@@ -485,6 +688,8 @@ def main():
         run_sensor(OUT_LASER3D, "multiscan")
     if args.only in (None, "dda"):
         run_dda(OUT_DDA)
+    if args.only in (None, "cli"):
+        run_cli(OUT_CLI)
 
 
 if __name__ == "__main__":

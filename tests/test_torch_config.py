@@ -59,8 +59,8 @@ def test_validation_matches():
 @pytest.mark.parametrize("override", [
     dict(edt_env_variant="mono"), dict(edt_env_variant="cf"), dict(edt_mid=False),
     dict(edt_phase1="xla"), dict(edt_env_variant="base"),
-    dict(edt_gate_pmode="voxel"), dict(profile_glb_rms=True),
-    dict(profile_loc_rms=True),
+    dict(edt_gate_pmode="voxel"), dict(edt_env_variant="mono+fusepay"),
+    dict(edt_env_variant="cf_base"),
 ])
 def test_unported_options_are_refused(override):
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
@@ -71,6 +71,18 @@ def test_unported_options_are_refused(override):
     assert tcfg.unported_options(cfg)
     with pytest.raises(NotImplementedError):
         VolumetricMapper(cfg)
+
+
+@pytest.mark.parametrize("flag", ["profile_loc_rms", "profile_glb_rms"])
+def test_profile_flags_are_ported(flag):
+    """The ground-truth RMSE checks run in the port: either flag builds a
+    mapper with a checker and a CSV log."""
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+
+    cfg = tcfg.scan2d_config(**{flag: True})
+    assert not tcfg.unported_options(cfg)
+    m = VolumetricMapper(cfg, device="cpu")
+    assert m.gt_checker is not None and m.logger is not None
 
 
 def test_cow_lady_defaults_construct():
@@ -183,8 +195,17 @@ def test_port_never_imports_jax():
     code = textwrap.dedent("""
         import importlib, pkgutil, sys
         import gie_mapping_tpu_torch as pkg
-        for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
-            importlib.import_module(m.name)
+        names = [m.name for m in
+                 pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
+        for name in names:
+            importlib.import_module(name)
+        rt = pkg.__name__ + ".runtime."
+        want = [pkg.__name__ + ".cli"] + [rt + m for m in (
+            "native", "rings", "clustering", "gt_checker", "logger",
+            "profiler", "lz4f", "rosbag", "rosbag_writer", "sync", "viz",
+            "datasets", "host_mirror")]
+        missing = sorted(set(want) - set(names))
+        assert not missing, missing
         bad = sorted(k for k in sys.modules
                      if k in ("jax", "gie_mapping_tpu")
                      or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.")))

@@ -63,9 +63,22 @@ def configs(kind, **kw):
             getattr(tcfg, PRESETS[kind])(**kw))
 
 
+def jax_frame_body(kind, cfg_j, rows, data):
+    """inst_type [K, X, Y, Z] of the JAX per-frame program's sensor:
+    `_fused_sensor(kind)` jitted alone on each frame's packed pose rows (it
+    rounds the sensor's height offset as frame_step does)."""
+    @jax.jit
+    def one(row, d):
+        pvt, _, _, rot, origin, s1, s2 = jpipe._unpack_pose(row)
+        return jpipe._fused_sensor(kind, d, rot, origin, s1, s2, pvt, cfg_j)[0]
+
+    return np.stack([np.asarray(one(jnp.asarray(r), jnp.asarray(d)))
+                     for r, d in zip(rows, data)])
+
+
 def jax_scan_body(kind, cfg_j, rows, data):
-    """inst_type [K, X, Y, Z] of the JAX frame program's sensor: a jitted
-    scan whose body runs `_fused_sensor(kind)` on the packed pose rows."""
+    """inst_type [K, X, Y, Z] of the JAX replay's sensor: a jitted scan
+    whose body runs `_fused_sensor(kind)` on the packed pose rows."""
     @jax.jit
     def scan(rows, data):
         def body(c, xs):
@@ -78,11 +91,12 @@ def jax_scan_body(kind, cfg_j, rows, data):
     return np.asarray(scan(jnp.asarray(rows), jnp.asarray(data)))
 
 
-def port_sensor(kind, cfg_t, rows, data):
-    """The port's sensor model on one frame's pose rows (CPU)."""
+def port_sensor(kind, cfg_t, rows, data, replay=False):
+    """The port's sensor model on one frame's pose rows (CPU), rounded as
+    the per-frame program or (`replay`) the replay's scan program."""
     inst, cnt = tpipe.SENSORS[kind](T(data), rows[3:6], rows[6], rows[7],
                                     rows[8], rows[0].astype(np.int32),
-                                    cfg=cfg_t)
+                                    cfg=cfg_t, replay=replay)
     assert not cnt.any()
     return inst.numpy()
 
@@ -226,8 +240,8 @@ WINDOWS = {"golden": cases.SMALL, "preset": {}}
 def test_pixel_geometry_matches_jax(window):
     """Forward distance and pixel indices, bitwise against a jitted copy
     of realsense_update's body (in a scan over packed pose rows, as the
-    frame program runs it), at random tilted poses and the voxel-face
-    pose."""
+    replay's scan program runs it: the port's replay rounding), at random
+    tilted poses and the voxel-face pose."""
     cj, ct = configs("depth", **WINDOWS[window])
     rows, data = cases.poses("depth", ct.local_size, ct.voxel_width, n=3)
     rows = np.concatenate([rows, cases.face_pose(ct.local_size,
@@ -253,7 +267,8 @@ def test_pixel_geometry_matches_jax(window):
                            float(rows[k, 8, 0]), T(data[k]))
         proj = tgeo.Projection(T(rows[k, 3:6].copy()), T(rows[k, 6].copy()))
         _, d, px, py = tss.pixel_geometry(proj, prm, rows[k, 0].astype(np.int32),
-                                          ct.local_size, ct.voxel_width)
+                                          ct.local_size, ct.voxel_width,
+                                          replay=True)
         np.testing.assert_array_equal(d.numpy().view(np.int32),
                                       want[0][k].view(np.int32), err_msg=f"x {k}")
         np.testing.assert_array_equal(px.numpy(), want[1][k], err_msg=f"px {k}")
@@ -263,9 +278,10 @@ def test_pixel_geometry_matches_jax(window):
 @pytest.mark.parametrize("valid_nan", [False, True])
 @pytest.mark.parametrize("window", list(WINDOWS))
 def test_depth_model_matches_the_frame_program(window, valid_nan):
-    """inst_type of realsense_update equals the JAX frame program's on
-    every voxel: clean images and images with NaN, +Inf, 0 and 0.21 m
-    pixels, at tilted poses and the voxel-face pose."""
+    """inst_type of realsense_update equals the JAX per-frame program's
+    on every voxel, and with `replay` the JAX replay scan's: clean images
+    and images with NaN, +Inf, 0 and 0.21 m pixels, at tilted poses and
+    the voxel-face pose."""
     cj, ct = configs("depth", valid_nan=valid_nan, **WINDOWS[window])
     rows, data = cases.poses("depth", ct.local_size, ct.voxel_width, n=3,
                              seed=1)
@@ -276,10 +292,12 @@ def test_depth_model_matches_the_frame_program(window, valid_nan):
     flat = np.full_like(data[0], 2.0)
     data = np.concatenate([data, edge, flat[None],
                            cases.edge_depth(flat, seed=9)[None]])
-    want = jax_scan_body("depth", cj, rows, data)
-    for k in range(len(rows)):
-        got = port_sensor("depth", ct, rows[k], data[k])
-        np.testing.assert_array_equal(got, want[k], err_msg=f"pose {k}")
+    for replay, body in ((False, jax_frame_body), (True, jax_scan_body)):
+        want = body("depth", cj, rows, data)
+        for k in range(len(rows)):
+            got = port_sensor("depth", ct, rows[k], data[k], replay)
+            np.testing.assert_array_equal(got, want[k],
+                                          err_msg=f"pose {k} replay={replay}")
     # the special pixels were seen: +Inf measured as free, NaN per policy
     assert (want == 1).any() and (want == 2).any()
 

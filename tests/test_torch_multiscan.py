@@ -30,8 +30,9 @@ from gie_mapping_tpu_torch.utils import config as tcfg
 from gie_mapping_tpu_torch.utils import geometry as tgeo
 from gie_mapping_tpu_torch.utils.floats import cosf_exact, sinf_exact
 from test_torch_depth import (SMALL_MAP, WINDOWS, check_batch, check_golden,
-                              check_online, configs, jax_scan_body, linear,
-                              port_sensor, runs)  # noqa: F401 (fixture)
+                              check_online, configs, jax_frame_body,
+                              jax_scan_body, linear, port_sensor,
+                              runs)  # noqa: F401 (fixture)
 import test_torch_sensor_cases as cases
 
 T = torch.from_numpy
@@ -118,8 +119,9 @@ def test_sinf_cosf_match_xla():
 def test_ring_geometry_matches_jax(window):
     """Azimuth and elevation bins, horizontal range and distance to the
     beam axis, bitwise against a jitted copy of vlp16_update's body (in a
-    scan over packed pose rows, as the frame program runs it), at random
-    tilted poses and the voxel-face pose."""
+    scan over packed pose rows, as the replay's scan program runs it: the
+    port's replay rounding), at random tilted poses and the voxel-face
+    pose."""
     cj, ct = configs("multiscan", **WINDOWS[window])
     rows, data = cases.poses("multiscan", ct.local_size, ct.voxel_width, n=3)
     face = cases.face_pose(ct.local_size, ct.voxel_width)
@@ -157,7 +159,7 @@ def test_ring_geometry_matches_jax(window):
         proj = tgeo.Projection(T(rows[k, 3:6].copy()), T(rows[k, 6].copy()))
         _, ti, pi_, rh, d2r = tss.ring_geometry(
             proj, prm, rows[k, 0].astype(np.int32), ct.local_size,
-            ct.voxel_width)
+            ct.voxel_width, replay=True)
         np.testing.assert_array_equal(ti.numpy(), want[0][k], err_msg=f"theta {k}")
         np.testing.assert_array_equal(pi_.numpy(), want[1][k], err_msg=f"phi {k}")
         np.testing.assert_array_equal(rh.numpy().view(np.int32),
@@ -170,8 +172,9 @@ def test_ring_geometry_matches_jax(window):
 
 @pytest.mark.parametrize("window", list(WINDOWS))
 def test_multiscan_model_matches_the_frame_program(window):
-    """inst_type of vlp16_update equals the JAX frame program's on every
-    voxel, at tilted poses, the voxel-face pose, and with NaN ranges."""
+    """inst_type of vlp16_update equals the JAX per-frame program's on
+    every voxel, and with `replay` the JAX replay scan's, at tilted poses,
+    the voxel-face pose, and with NaN ranges."""
     cj, ct = configs("multiscan", **WINDOWS[window])
     rows, data = cases.poses("multiscan", ct.local_size, ct.voxel_width, n=4,
                              seed=2)
@@ -181,10 +184,12 @@ def test_multiscan_model_matches_the_frame_program(window):
     holes = data[1].copy()
     holes[:, ::3] = np.nan
     data = np.concatenate([data, holes[None]])
-    want = jax_scan_body("multiscan", cj, rows, data)
-    for k in range(len(rows)):
-        got = port_sensor("multiscan", ct, rows[k], data[k])
-        np.testing.assert_array_equal(got, want[k], err_msg=f"pose {k}")
+    for replay, body in ((False, jax_frame_body), (True, jax_scan_body)):
+        want = body("multiscan", cj, rows, data)
+        for k in range(len(rows)):
+            got = port_sensor("multiscan", ct, rows[k], data[k], replay)
+            np.testing.assert_array_equal(got, want[k],
+                                          err_msg=f"pose {k} replay={replay}")
     assert (want == 1).any() and (want == 2).any()
 
 

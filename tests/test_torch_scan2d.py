@@ -172,8 +172,11 @@ def test_hokuyo_matches_jax(local):
 def _jax_beam_geometry(proj, param, pvt, *, local_size, voxel_width):
     """The JAX package's hokuyo_update body up to the beam lookup, returning
     its intermediates: the sensor-frame position, the beam index and the
-    planar range."""
+    planar range; and its height test, which shares the voxel height
+    c_z * w with the frame change as in hokuyo_update (XLA then rounds
+    that product before subtracting the sensor's z)."""
     glb_pos, _ = jss._window_positions(pvt, local_size, voxel_width)
+    hgt_ok = (glb_pos[..., 2] >= -10.0) & (glb_pos[..., 2] <= 10.0)
     local_pos = proj.g2l(glb_pos)
     theta = jnp.arctan2(local_pos[..., 1], local_pos[..., 0])
     theta_idx = jnp.floor((theta - param.theta_min) / param.theta_inc
@@ -182,7 +185,7 @@ def _jax_beam_geometry(proj, param, pvt, *, local_size, voxel_width):
     planar = jnp.abs(local_pos[..., 2]) < voxel_width
     idea_depth = jnp.where(
         planar, jnp.sqrt(local_pos[..., 0] ** 2 + local_pos[..., 1] ** 2), -1.0)
-    return local_pos, theta_idx, idea_depth
+    return local_pos, theta_idx, idea_depth, hgt_ok
 
 
 def _tilted_pose(rng):
@@ -212,6 +215,8 @@ def test_beam_geometry_matches_jax(local):
     world = scan2d_world()
     rng = np.random.default_rng(sum(local))
     poses = scan2d_path()[3:5] + [_tilted_pose(rng) for _ in range(4)]
+    # the sensor on a voxel centre whose height c_z * w rounds
+    poses.append((np.float32([0.6, 0.0, 1.2]), (0.92388, 0.0, 0.0, 0.38268)))
     for i, pose in enumerate(poses):
         r, tmin, tinc = hokuyo_scan(world, pose)
         pvt = jgeo.calculate_pivot(pose[0], 0.1, local)
