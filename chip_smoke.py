@@ -125,7 +125,20 @@ Phases, one JSON line each; any failure exits non-zero:
                 process_ext_cloud between two process_pointcloud_batch calls
                 at the cow_lady preset's width (datasets.ext_churn_path)
                 and in the port's frame loop.
- 13. profile  - only with --profile: torch.profiler over a second run of
+ 13. mesh     - the device mesh (parallel/mesh.py) on this card: the
+                cow-lady slice and bench.py's replay (as phases 4 and 8)
+                through VolumetricMapper(cfg, mesh=make_mesh(devices=[card]
+                * 4)), every frame's window outputs, gate levels and origins,
+                the final state, the replay's per_frame scalars, counters
+                and payload8 against the JAX package's mesh run
+                (tests/fixtures/torch_port_mesh_ref.npz), and window outputs
+                and checkpoint fields against the port's single-device run
+                of the same frames; the sharded EDT's kernels (phases 1, 2
+                and the generic envelope) must launch and envelope_mid must
+                not.  Prints both runs' ms per frame beside the card's
+                nvidia-smi line.  With two or more cards, the slice again
+                over distinct cards; else a line that says it was not run.
+ 14. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -135,7 +148,11 @@ plain versions at the new paths' canvases and the gate's slabs of them
 row copies at those canvases' blocks (30x30x21, 14x14x5, 10x10x5) and
 their presets' archive sizes (every z arm, shifts past the canvas, a
 stream tick's 64 columns, repeated and zero ids, a full scroll's rows),
-and times each of the eight there.
+and times each of the eight there; and the sharded EDT
+(batch_edt_sharded, and its y-slabs) on the [152, 152, 80] canvas over 2, 4
+and 8 shards of this card, bitwise against the single-device and plain
+chains, with its three kernels at the shard shapes and the two all_to_all
+reshards timed (the `mesh_shards` line).
 Then one line with every kernel's launches (summed over the paths, each
 counted from 0 just before it), error, times, bound and share, the
 card's nvidia-smi line, and last `{"ok": true, "device": {...}}`.
@@ -174,6 +191,9 @@ LOG: list = []
 # replayed in runs of 4, one with the RMSE check; the committed bags; a
 # resume; the two side channels
 REF_CLI = os.path.join(ROOT, "tests", "fixtures", "torch_port_cli_ref.npz")
+# the mesh phase (make_torch_port_ref.py --only mesh writes its fixture)
+REF_MESH = os.path.join(ROOT, "tests", "fixtures", "torch_port_mesh_ref.npz")
+MESH_SIZES = (2, 4, 8)  # the sharded EDT's mesh sizes in the kernels phase
 CLI_FRAMES = 4
 CLI_CASES = ("cow_lady", "ugv_corridor", "uav_raycast_fine", "depthcam",
              "laser3D", "scan2D")
@@ -632,6 +652,7 @@ def phase_kernels(dev, results, parent):
     sensor_bad, sensor_report = sensor_model_kernels(dev, results, parent)
     scroll_bad, gather_report = scroll_kernels(dev, results)
     new_bad, new_report = new_shape_kernels(dev)
+    mesh_bad, mesh_report = mesh_shard_kernels(dev)
     CLOCK.run()
     for entry in results.values():
         settle(entry)
@@ -642,8 +663,9 @@ def phase_kernels(dev, results, parent):
     sensor_report()
     gather_report()
     new_report()
+    mesh_report()
     emit({"phase": ph, "ok": True, "phase1_bad": p1_bad, "envelope_bad": env_bad,
-          "new_canvases_bad": new_bad,
+          "new_canvases_bad": new_bad, "mesh_shards_bad": mesh_bad,
           "envelope_generic_bad": env5_bad, "sensor_model_bad": sensor_bad,
           "edt_bad": edt_bad, "scroll_kernels_bad": scroll_bad,
           "ms": {k: round(v["ms"], 4) for k, v in results.items()},
@@ -749,6 +771,114 @@ def new_shape_kernels(dev):
             k: {f: v for f, v in e.items() if f not in ("library_ms",
                                                       "library_device_ms",
                                                       "library_host_us")}
+            for k, e in rows.items()}})
+    return bad, report
+
+
+def mesh_shard_kernels(dev):
+    """The sharded EDT (batch_edt_sharded, and batch_edt_sharded_slab at the
+    mesh gate's y-slabs) on the cow-lady canvas [152, 152, 80] (the
+    corridor world's sites) over [dev] * n for n in MESH_SIZES, bitwise
+    against the single-device kernel chain and the plain chain; its three
+    kernels bitwise against their plain versions at the shard shapes.  Each
+    n's phase 1 ([X/n, Y, Z]), phase 2 ([X, (Z/n) Y]) and generic envelope
+    ([Z, (X/n) Y]) timed on one shard (device_ms, ms, host_us, bound), and
+    the two all_to_all reshards (every copy and concatenation they launch;
+    bound: each word read once and written once).  Returns (differing
+    values, a function that prints the times once CLOCK has run)."""
+    import torch
+
+    from gie_mapping_tpu_torch.models.pipeline import _slab_menu
+    from gie_mapping_tpu_torch.ops import edt_batch as eb
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+    from gie_mapping_tpu_torch.parallel.mesh import (all_to_all, make_mesh,
+                                                     split_x)
+
+    t = world_canvas(dev)
+    X, Y, Z = t.shape
+    mw = X + Y + Z
+    yb, ib2 = kp.phase1_pack_bits(Y), ke.env_idx_bits(X)
+    one = eb.batch_edt(t, mw)
+    plain = eb.batch_edt(t.cpu(), mw)
+    bad = {"edt": 0, "phase1": 0, "envelope_packed": 0, "envelope": 0}
+    err = dict.fromkeys(bad, 0)
+
+    def compare(name, a, b):
+        d = (a.to(torch.int64).cpu() - b.to(torch.int64).cpu()).abs()
+        bad[name] += int((d != 0).sum())
+        err[name] = max(err[name], int(d.max()) if d.numel() else 0)
+
+    rows = {}
+    for n in MESH_SIZES:
+        mesh = make_mesh(devices=[dev] * n)
+        got = eb.batch_edt_sharded(t, mw, mesh)
+        for k in one:
+            compare("edt", got[k], one[k])
+            compare("edt", got[k], plain[k])
+        for _, sy in _slab_menu((X, Y, Z)):
+            for y0 in (0, Y - sy):
+                s = eb.batch_edt_sharded_slab(t, y0, sy=sy, max_width=mw,
+                                              mesh=mesh)
+                for k in one:
+                    compare("edt", s[k], plain[k][:, y0:y0 + sy])
+        # the chain's shard-shape inputs, as _edt_sharded builds them
+        shards = split_x(t, mesh)
+        p1 = [kp.phase1_packed(a, mw) for a in shards]
+        compare("phase1", p1[0], kp.phase1_packed_plain(shards[0], mw))
+        f2 = all_to_all([eb._zyx(a) for a in p1], 1, 0)
+        kk, kpay = ke.envelope_packed(f2[0], yb)
+        pk, ppay = ke.envelope_packed_plain(f2[0], yb)
+        compare("envelope_packed", kk, pk)
+        compare("envelope_packed", kpay, ppay)
+        d2m, pay3 = zip(*[eb._phase3_inputs(*ke.envelope_packed(f, yb), ib2)
+                          for f in f2])
+        f3 = all_to_all([a.movedim(1, 0) for a in d2m], 1, 0)
+        p3 = all_to_all([a.movedim(1, 0) for a in pay3], 1, 0)
+        kk, kpay = ke.envelope(f3[0], p3[0])
+        pk, ppay = ke.envelope_plain(f3[0], p3[0])
+        compare("envelope", kk, pk)
+        compare("envelope", kpay, ppay)
+        v = t.numel()
+        s0, g, f, pay = shards[0], f2[0], f3[0], p3[0]
+        fns = {
+            "phase1": (lambda s0=s0: kp.phase1_packed(s0, mw),
+                       lambda s0=s0: kp.phase1_packed_plain(s0, mw),
+                       5 * s0.numel(), P1_OPS_PER_VOXEL * s0.numel(),
+                       "phase1_bits_kernel", s0.shape),
+            "envelope_packed": (lambda g=g: ke.envelope_packed(g, yb),
+                                lambda g=g: ke.envelope_packed_plain(g, yb),
+                                12 * g.numel(), ENV_OPS_PER_SITE * g.numel(),
+                                "envelope_packed_fh_kernel", g.shape),
+            "envelope": (lambda f=f, pay=pay: ke.envelope(f, pay),
+                         lambda f=f, pay=pay: ke.envelope_plain(f, pay),
+                         16 * f.numel(), ENV_OPS_PER_SITE * f.numel(),
+                         "envelope_mid_fh_kernel", f.shape),
+            "reshard1": (lambda p1=p1: all_to_all([eb._zyx(a) for a in p1], 1, 0),
+                         None, 8 * v, 0, None, (n, X // n, Z, Y)),
+            "reshard2": (lambda d2m=d2m, pay3=pay3: (
+                all_to_all([a.movedim(1, 0) for a in d2m], 1, 0),
+                all_to_all([a.movedim(1, 0) for a in pay3], 1, 0)),
+                None, 16 * v, 0, None, (2, n, Z // n, X, Y)),
+        }
+        for k, (fn, plain_fn, bytes_, ops, kname, shape) in fns.items():
+            entry = result(None, timing(fn, kname),
+                           cuda_ms(plain_fn, 3, warm=1) if plain_fn else None,
+                           bytes_=bytes_, ops=ops)
+            entry.update(n=n, shape=list(shape))
+            if kname:
+                entry["launches_per_edt"] = n
+            rows[f"{k}@n{n}"] = entry
+    torch.cuda.synchronize()
+    require(not any(bad.values()), "kernels",
+            f"the sharded EDT or its kernels at shard shapes differ: {bad}")
+
+    def report():
+        for k, entry in rows.items():
+            settle(entry)
+            entry["max_abs_err"] = err.get(k.split("@")[0])
+        emit({"phase": "kernels", "mesh_shards": {
+            k: {f: v for f, v in e.items() if not f.startswith("library")}
             for k, e in rows.items()}})
     return bad, report
 
@@ -1432,11 +1562,11 @@ def carve_bytes(tables):
     return 4 * (depth.numel() + cnt.numel()) + 9 * ep.numel()
 
 
-def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
-    """Drive the slice through VolumetricMapper.process_pointcloud; the
-    launch counters of `wrappers` are zeroed right before the first frame,
-    and `loop_ctx` (a context manager) wraps the frame loop alone.
-    Returns (mapper, per-frame records)."""
+def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None, mesh=None):
+    """Drive the slice through VolumetricMapper.process_pointcloud (on
+    `dev`, or over `mesh`); the launch counters of `wrappers` are zeroed
+    right before the first frame, and `loop_ctx` (a context manager) wraps
+    the frame loop alone.  Returns (mapper, per-frame records)."""
     import torch
 
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
@@ -1444,7 +1574,8 @@ def run_slice(dev, frames, poses, wrappers=(), loop_ctx=None):
     from gie_mapping_tpu_torch.utils.config import cow_lady_config
 
     overrides, _, _ = cow_lady_slice()
-    mapper = VolumetricMapper(cow_lady_config(**overrides), device=dev)
+    mapper = VolumetricMapper(cow_lady_config(**overrides),
+                              device=None if mesh else dev, mesh=mesh)
     mapper.warmup(robot_pos=poses[0][0])
     staged = [mapper.stage_pointcloud(p) for p in frames]
     torch.cuda.synchronize()
@@ -1898,6 +2029,123 @@ def phase_scan(dev, wrappers, flat):
     require(out_match == len(recs), ph,
             f"only {out_match} of {len(recs)} frames match the JAX reference")
     require(sha_ok, ph, "final state differs from the JAX reference")
+    return launches
+
+
+def phase_mesh(dev, wrappers, smi, frames, poses):
+    """The cow-lady slice and bench.py's replay through
+    VolumetricMapper(cfg, mesh=...) over the fixture's mesh size on this
+    card ([dev] * n), against the JAX package's mesh run
+    (tests/fixtures/torch_port_mesh_ref.npz) and the port's single-device
+    run of the same frames in this process; with two or more cards the
+    slice again over distinct cards.  Returns the launch counts of the
+    mesh runs."""
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+
+    ph = "mesh"
+    ref = np.load(REF_MESH)
+    n = int(ref["devices"])
+    mesh = make_mesh(devices=[dev] * n)
+    launches = dict.fromkeys(wrappers, 0)
+    keep = VolumetricMapper.CHECKPOINT_FIELDS
+
+    def same_fields(a, b):
+        sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
+        return [k for k in keep if not np.array_equal(sa[k], sb[k])]
+
+    # -- the slice -------------------------------------------------------------
+    sm, srecs = run_slice(dev, frames, poses, wrappers.values(), mesh=mesh)
+    got_s = {k: w.launches for k, w in wrappers.items()}
+    om, orecs = run_slice(dev, frames, poses)
+    bad = [k for k in ("out_sha", "gate_level", "origin")
+           if [r[k] for r in srecs] != ref[f"slice_{k}"].tolist()]
+    if state_digest(state_to_numpy(sm.state)) != str(ref["slice_state_sha"]):
+        bad.append("state_sha")
+    one_bad = same_fields(sm, om)
+    if [r["out_sha"] for r in srecs] != [r["out_sha"] for r in orecs]:
+        one_bad.append("out_sha")
+    ms = lambda recs: float(np.mean([r["ms"] for r in recs[1:]]))
+    emit({"phase": ph, "part": "slice", "devices": [str(d) for d in mesh.devices],
+          "launches": got_s, "fixture_mismatch": bad, "one_device_mismatch": one_bad,
+          "gate_levels": [r["gate_level"] for r in srecs],
+          "mesh_ms_per_frame": ms(srecs), "one_device_ms_per_frame": ms(orecs),
+          "nvidia_smi": smi})
+    require(not bad, ph, f"the mesh slice differs from the JAX mesh run in {bad}")
+    require(not one_bad, ph, f"the mesh slice differs from one device in {one_bad}")
+    require(all(got_s[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
+                                      "panorama", "carve"))
+            and got_s["envelope_mid"] == 0, ph,
+            f"the mesh slice must run the sharded EDT's kernels: {got_s}")
+    for k, v in got_s.items():
+        launches[k] += v
+
+    # -- bench.py's replay -------------------------------------------------------
+    cfg, bposes, clouds, n_online, chunk = bench_inputs()
+    nb = len(bposes) - n_online
+
+    def bench(m, runs):
+        pts, val = m.stage_pointcloud_batch(clouds)
+        sha, levels = [], []
+        for i in range(n_online):
+            o = m.process_pointcloud(bposes[i], pts[i], val[i])
+            sha.append(output_digest(o.glb_type, o.dist_sq, o.coc))
+            levels.append(int(o.gate_level))
+        with recorded_runs(runs):
+            out, t, _ = timed(lambda: m.process_pointcloud_batch(
+                bposes[n_online:], pts[n_online:], val[n_online:], chunk=chunk))
+        return sha, levels, out.fetch(), t / nb
+
+    mm, mruns = VolumetricMapper(cfg, mesh=mesh), []
+    (sha, levels, out, ms_m), got_b = _counted(wrappers, lambda: bench(mm, mruns))
+    rec, _ = replay_end(mm, out, mruns)
+    bad = [k for k, v in rec.items()
+           if not np.array_equal(np.asarray(v), ref[f"bench_{k}"])]
+    bad += [k for k, v in (("online_out_sha", sha), ("online_gate_level", levels))
+            if v != ref[f"bench_{k}"].tolist()]
+    m1, oruns = VolumetricMapper(cfg, device=dev), []
+    osha, _, oout, ms_1 = bench(m1, oruns)
+    one_bad = same_fields(mm, m1)
+    if osha != sha or output_digest(oout.glb_type, oout.dist_sq, oout.coc) \
+            != rec["out_sha"]:
+        one_bad.append("out_sha")
+    emit({"phase": ph, "part": "bench", "frames": nb, "chunk": chunk,
+          "launches": got_b, "fixture_mismatch": bad, "one_device_mismatch": one_bad,
+          "gate_levels": rec["pf_gate_level"].tolist(),
+          "scanned_frames": rec["scanned_frames"],
+          "scanned_scrolls": rec["scanned_scrolls"],
+          "mesh_replay_ms_per_frame": ms_m, "one_device_replay_ms_per_frame": ms_1,
+          "nvidia_smi": smi})
+    require(not bad, ph, f"the mesh replay differs from the JAX mesh run in {bad}")
+    require(not one_bad, ph, f"the mesh replay differs from one device in {one_bad}")
+    require(all(got_b[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
+                                      "panorama", "carve", "shift_canvas"))
+            and got_b["envelope_mid"] == 0, ph,
+            f"the mesh replay must run the sharded EDT's kernels: {got_b}")
+    for k, v in got_b.items():
+        launches[k] += v
+
+    # -- distinct cards ------------------------------------------------------------
+    cards = torch.cuda.device_count()
+    nd = next((k for k in MESH_SIZES[::-1] if k <= cards), 0)
+    if nd < 2:
+        emit({"phase": ph, "part": "distinct_cards",
+              "not_run": f"{cards} CUDA device: a mesh of distinct cards needs two"})
+    else:
+        dm, drecs = run_slice(dev, frames, poses, mesh=make_mesh(nd))
+        dbad = [k for k in ("out_sha", "gate_level")
+                if [r[k] for r in drecs] != ref[f"slice_{k}"].tolist()]
+        if state_digest(state_to_numpy(dm.state)) != str(ref["slice_state_sha"]):
+            dbad.append("state_sha")
+        emit({"phase": ph, "part": "distinct_cards", "devices": nd,
+              "fixture_mismatch": dbad, "mesh_ms_per_frame": ms(drecs)})
+        require(not dbad, ph, f"the slice over {nd} cards differs in {dbad}")
+    emit({"phase": ph, "ok": True, "launches": launches})
     return launches
 
 
@@ -2790,7 +3038,8 @@ def main(argv=None) -> int:
                               phase_sensor(dev, all_wrappers(), "depth"),
                               phase_sensor(dev, all_wrappers(), "multiscan"),
                               phase_dda(dev, all_wrappers()),
-                              phase_cli(dev, all_wrappers(), smi)):
+                              phase_cli(dev, all_wrappers(), smi),
+                              phase_mesh(dev, all_wrappers(), smi, frames, poses)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

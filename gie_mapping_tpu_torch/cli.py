@@ -16,8 +16,10 @@ Examples:
 
 The JAX package's A/B toggles (--env-variant, --phase1, --mid,
 --gate-pmode) accept only the value the port runs; any other value fails
-with the mapper's "not ported" error.  --mesh (more than one device) is
-not ported.
+with the mapper's "not ported" error.  --mesh N runs the canvas EDT
+sharded over N devices (parallel/mesh.py): the first N cards, or with
+--cpu N CPU devices, as the JAX CLI's virtual ones; the results equal one
+device's.
 """
 from __future__ import annotations
 
@@ -30,6 +32,7 @@ import numpy as np
 import torch
 
 from .models.mapper import VolumetricMapper
+from .parallel.mesh import make_mesh
 from .runtime.datasets import BoxWorld, circular_trajectory, load_frames_npz
 from .utils import geometry as geo
 from .utils.config import load_config
@@ -135,7 +138,9 @@ def _parser():
                          "in runs of up to K (bit-identical to the "
                          "per-frame loop)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="more than one device: not ported")
+                    help="shard the canvas EDT along x over an N-device "
+                         "mesh (with --cpu, N CPU devices); bit-identical "
+                         "to one device")
     return ap
 
 
@@ -175,12 +180,15 @@ def main(argv=None):
     """Run the CLI on `argv` (sys.argv[1:] when None); prints the one-line
     JSON summary and returns it as a dict."""
     args = _parser().parse_args(argv)
-    if args.mesh > 1:
-        raise NotImplementedError(
-            "not ported to PyTorch yet: --mesh (more than one device)")
     device = "cpu" if args.cpu else "cuda"
+    mesh = None
+    if args.mesh > 1:
+        mesh = (make_mesh(devices=["cpu"] * args.mesh) if args.cpu
+                else make_mesh(args.mesh))
+        device = None
     cfg = _config(args)
-    mapper = VolumetricMapper(cfg, device=device, log_path=args.log)
+    mapper = VolumetricMapper(cfg, device=device, log_path=args.log,
+                              mesh=mesh)
     dev = mapper.device
 
     # frames are made (or decoded) first: simulation is not engine time
@@ -195,7 +203,8 @@ def main(argv=None):
             cap = 1 << (maxpts - 1).bit_length()
             cfg = cfg.replace(max_raycast_points=min(
                 cfg.max_raycast_points, max(cap, 4096)))
-            mapper = VolumetricMapper(cfg, device=device, log_path=args.log)
+            mapper = VolumetricMapper(cfg, device=device, log_path=args.log,
+                                      mesh=mesh)
 
         def _stage(kind, payload):
             if kind == "pointcloud":

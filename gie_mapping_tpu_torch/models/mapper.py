@@ -17,7 +17,8 @@ boxes) and `process_multiscan_cloud` (a raw ring cloud), checkpoints
 (`save` / `load`, the JAX package's file format), the CSV log
 (`log_path`) and the ground-truth RMSE checks (`profile_loc_rms`,
 `profile_glb_rms`).  The mapper runs on the CUDA device unless it is
-given another.
+given another, or over a device mesh (`mesh=`, parallel/mesh.py: the state
+on the mesh's first device, the canvas EDT sharded across it).
 """
 from __future__ import annotations
 
@@ -30,6 +31,7 @@ import torch
 
 from ..map_state import (MapState, canvas_geometry, resolve_device,
                          shift_block_mask, state_from_numpy, stream_extract)
+from ..parallel.mesh import shard_state
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
@@ -252,26 +254,37 @@ class _ExtObs:
 class VolumetricMapper:
     """The mapping engine: feed poses + sensor frames, read cost maps.
     `device` defaults to "cuda" (an error without a card); pass
-    device="cpu" to run the kernels' plain versions on the CPU.  With
-    `log_path` (or a profile flag) every frame writes a CSV row
-    (runtime/logger.py; in memory when log_path is None)."""
+    device="cpu" to run the kernels' plain versions on the CPU.  `mesh`
+    (parallel.mesh.make_mesh; exclusive with `device`) places the state on
+    the mesh's first device and runs the canvas EDT sharded over the mesh,
+    with results equal to one device's.  With `log_path` (or a profile
+    flag) every frame writes a CSV row (runtime/logger.py; in memory when
+    log_path is None)."""
 
     _SELF = object()  # sentinel: "use self._origin"
 
     def __init__(self, cfg: MapConfig, device=None,
-                 log_path: Optional[str] = None):
+                 log_path: Optional[str] = None, mesh=None):
+        if device is not None and mesh is not None:
+            raise ValueError("device and mesh are mutually exclusive: a mesh "
+                             "places state across its own devices")
         bad = unported_options(cfg)
         if bad:
             raise NotImplementedError(
                 "not ported to PyTorch yet: " + ", ".join(bad))
+        if mesh is not None:
+            device = mesh.devices[0]
+        # shards see the full X in phase 2 and the full Z in phase 3, so
+        # the limits are the same under a mesh
         if torch.device("cuda" if device is None else device).type == "cuda":
             bad = kernel_limits(cfg)
             if bad:
                 raise NotImplementedError(
                     "beyond the CUDA kernels' limits: " + ", ".join(bad))
         self.cfg = cfg
+        self.mesh = mesh
         self.device = resolve_device(device, "VolumetricMapper")
-        self.state = MapState.create(cfg, self.device)
+        self.state = self._placed(MapState.create(cfg, self.device))
         self.ext_obs = _ExtObs(cfg)
         self._origin = None  # host mirror of the canvas origin
         self._last_pvt = None
@@ -308,6 +321,10 @@ class VolumetricMapper:
 
             self.gt_checker = GroundTruthChecker()
 
+    def _placed(self, state: MapState) -> MapState:
+        """`state` placed on the mesh (shard_state), or as it is."""
+        return state if self.mesh is None else shard_state(state, self.mesh)
+
     def warmup(self, robot_pos=(0.0, 0.0, 0.0)):
         """Run one empty frame on a throwaway state so the first real frame
         pays no one-time cost (kernel build, allocator growth).  Records the
@@ -316,14 +333,15 @@ class VolumetricMapper:
         cfg = self.cfg
         pvt, origin_blk, off = self._frame_geometry(
             np.asarray(robot_pos, np.float32))
-        throwaway, shift = scroll_step(MapState.create(cfg, self.device),
-                                       origin_blk, cfg=cfg)
+        throwaway, shift = scroll_step(
+            self._placed(MapState.create(cfg, self.device)), origin_blk,
+            cfg=cfg)
         fence, fence_on = self._fence_args(pvt)
         zeros8 = torch.zeros(cfg.local_size, dtype=torch.int8, device=self.device)
         zeros32 = torch.zeros(cfg.local_size, dtype=torch.int32, device=self.device)
         merge_frame(throwaway, zeros8, zeros32, pvt, origin_blk, off, fence,
                     cfg=cfg, input_pointcloud=False, use_fence=fence_on,
-                    enter_shift=shift)
+                    enter_shift=shift, mesh=self.mesh)
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
         return self
@@ -419,7 +437,7 @@ class VolumetricMapper:
         self.state, out = merge_frame(
             self.state, inst_type, ray_count, pvt, origin_blk, off, fence,
             cfg=cfg, input_pointcloud=input_pointcloud, use_fence=fence_on,
-            enter_shift=enter_shift)
+            enter_shift=enter_shift, mesh=self.mesh)
         t_end = time.perf_counter()
         self.map_ct += 1
         result = FrameOutput(out, origin=pvt.astype(np.float32) * cfg.voxel_width,
@@ -570,7 +588,8 @@ class VolumetricMapper:
         the JAX package, the per-cell distance bound and the phase-1 cache
         are not stored: the bound resets to EMPTY_VALUE and the cache is
         marked stale (the gate's first frame runs its full branch), and the
-        next frame re-places the canvas."""
+        next frame re-places the canvas.  Under a mesh the state is placed
+        on it again."""
         raw = np.load(path)
         version = int(raw["meta/version"]) if "meta/version" in raw.files else 1
         if version != 3:
@@ -587,7 +606,7 @@ class VolumetricMapper:
         arrays["p1c"] = np.zeros((1, 1, 1), np.int32)  # replaced below
         arrays["p1c_ok"] = np.zeros((), bool)
         p1c = self.state.p1c  # kept, as in the JAX package (marked stale)
-        self.state = state_from_numpy(arrays, self.device)
+        self.state = self._placed(state_from_numpy(arrays, self.device))
         self.state.p1c = p1c
         self.map_ct = int(raw["meta/map_ct"])
         self._origin = None  # the next frame re-syncs the canvas
@@ -949,7 +968,7 @@ class VolumetricMapper:
                 self.state, pose_h, scrolled, fence, cfg=cfg,
                 origin_blk=start_origin, input_pointcloud=input_pointcloud,
                 use_fence=fence_on, compact_cols=[c for *_, c in plan],
-                has_scrolls=bool(scrolled.any()), **frames)
+                has_scrolls=bool(scrolled.any()), mesh=self.mesh, **frames)
             last = plan[-1]
             self._origin = np.asarray(last[1]).copy()
             self._last_pvt = np.asarray(last[0]).copy()  # motion-bias anchor

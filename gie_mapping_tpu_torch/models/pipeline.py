@@ -20,6 +20,13 @@ per frame.
 
 Window offsets, pivots and origins are host integers (numpy), as the JAX
 mapper computes them; every crop is a plain slice.
+
+Under a device mesh (`mesh=`, parallel/mesh.py) the state lies on the
+mesh's home device and every stage runs there but the canvas EDT, which
+takes the JAX package's sharded arms: batch_edt_sharded for the full
+branch, batch_edt_sharded_slab (y lanes only: the slab spans all of x)
+for the gate's slabs, and no phase-1 cache.  The gate runs under a mesh
+only where sharded_edt_ok holds, as in the JAX package.
 """
 from __future__ import annotations
 
@@ -32,7 +39,9 @@ import torch
 from ..map_state import (COC_INVALID16, MapState, scroll_canvas,
                          shift_block_mask)
 from ..ops import raycast as rc
-from ..ops.edt_batch import batch_edt, batch_edt_slab
+from ..ops.edt_batch import (batch_edt, batch_edt_sharded,
+                              batch_edt_sharded_slab, batch_edt_slab,
+                              sharded_edt_ok)
 from ..ops.fusion import _fence_mask, _lowpass
 from ..ops.kernels.envelope import ENVELOPE_MID_MAX_N, ENVELOPE_PACKED_MAX_N
 from ..ops.kernels.phase1 import phase1_fits, phase1_packed
@@ -71,17 +80,20 @@ def _menu_fracs(cfg):
     return cfg.edt_gate_menu or DEFAULT_MENU_FRACS
 
 
-def gate_enabled(cfg) -> bool:
-    """Whether this config runs the change-gated EDT (else one full EDT)."""
+def gate_enabled(cfg, mesh=None) -> bool:
+    """Whether this config runs the change-gated EDT (else one full EDT);
+    under a mesh only where the sharded EDT takes the canvas."""
     X, Y, Z = cfg.canvas_size
     return (cfg.merge_mode == "canvas_edt" and cfg.edt_gate and Z > 1
             and bool(_slab_menu(cfg.canvas_size, _menu_fracs(cfg)))
+            and (mesh is None or sharded_edt_ok(cfg.canvas_size, mesh))
             and X * Y * Z >= cfg.edt_gate_min_vox)
 
 
-def p1_cache_enabled(cfg) -> bool:
-    """Whether this config maintains the phase-1 cache (MapState.p1c)."""
-    return (gate_enabled(cfg) and cfg.edt_p1_cache
+def p1_cache_enabled(cfg, mesh=None) -> bool:
+    """Whether this config maintains the phase-1 cache (MapState.p1c);
+    never under a mesh."""
+    return (mesh is None and gate_enabled(cfg) and cfg.edt_p1_cache
             and phase1_fits(cfg.canvas_size[1]))
 
 
@@ -159,16 +171,18 @@ def _finalize(cfg, dist_state_s, coc_state_s, edt, obs_s, pres_s, win_s):
 
 def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
                         old_type_win, win_off, window_mask, present_blk,
-                        enter_shift, cfg: MapConfig):
+                        enter_shift, cfg: MapConfig, mesh=None):
     """Change-gated exact canvas EDT (see the JAX package's docstring for
-    the affected-region argument).  Returns (final_dist, final_coc,
-    dist_win, coc_win, changed_blk_dist, gate_level, slab_vox, dmax_new,
-    p1c_new)."""
+    the affected-region argument).  Under a mesh the slabs span all of x
+    (x is the sharded axis).  Returns (final_dist, final_coc, dist_win,
+    coc_win, changed_blk_dist, gate_level, slab_vox, dmax_new, p1c_new)."""
     dev = canvas_type.device
     cs = cfg.canvas_size
     local_size = cfg.local_size
     X, Y, Z = cs
     menu = _slab_menu(cs, _menu_fracs(cfg))
+    if mesh is not None:
+        menu = [(X, sy) for _, sy in menu]
     n_menu = len(menu)
     off = [int(v) for v in win_off]
     es = [int(v) for v in enter_shift]
@@ -250,7 +264,7 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
         sel = n_menu + 1  # no sites at all: constant fill
 
     # ---- phase-1 cache: patch the site-flip x-slab, or rebuild -----------
-    use_p1c = p1_cache_enabled(cfg)
+    use_p1c = p1_cache_enabled(cfg, mesh)
     p1c_new = state.p1c
     mw = sum(cs)
     if use_p1c:
@@ -277,8 +291,12 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
         box = _box((ox, oy, 0), (SX, SY, Z))
         pres_s = _expand_blocks(present_blk[ox // 8:ox // 8 + SX // 8,
                                             oy // 8:oy // 8 + SY // 8, :])
-        slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY, max_width=mw,
-                              p1_packed=p1)
+        if mesh is None:
+            slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY,
+                                  max_width=mw, p1_packed=p1)
+        else:
+            slab = batch_edt_sharded_slab(canvas_type, oy, sy=SY,
+                                          max_width=mw, mesh=mesh)
         win_s = window_mask[box]
         dist_state_s = state.dist_sq[box]
         coc_state_s = state.coc[box]
@@ -305,8 +323,10 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
             full = {"valid": torch.zeros(cs, dtype=torch.bool, device=dev),
                     "dist_sq": torch.zeros(cs, dtype=torch.int32, device=dev),
                     "coc": torch.zeros(cs + (3,), dtype=torch.int32, device=dev)}
-        else:
+        elif mesh is None:
             full = batch_edt(canvas_type, mw, p1_packed=p1)
+        else:
+            full = batch_edt_sharded(canvas_type, mw, mesh)
         obs = canvas_type != VOX_UNKNOWN
         final_dist, final_coc, dist_pre, coc_pre = _finalize(
             cfg, state.dist_sq, state.coc, full, obs,
@@ -324,7 +344,7 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
 def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
                 win_off, fence, *, cfg: MapConfig, input_pointcloud: bool,
                 use_fence: bool = True, enter_shift=None,
-                emit_outputs: bool = True):
+                emit_outputs: bool = True, mesh=None):
     """Fuse one local observation into the global map and refresh the EDT
     (the JAX package's merge_frame_impl with do_scroll=False).
 
@@ -334,7 +354,9 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     voxels (host ints) or None.  Returns (state', outputs dict).  With
     emit_outputs=False the outputs are only changed_blk and the scalars of
     SCALAR_OUTPUTS: the window tensors (edt, glb_type, dist_sq, coc,
-    ogm_changed) are not built, and the state is the same."""
+    ogm_changed) are not built, and the state is the same.  mesh: a
+    parallel.mesh.Mesh whose home holds the state; the canvas EDT runs
+    sharded over it (module docstring)."""
     local_size = cfg.local_size
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
@@ -406,17 +428,19 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     window_mask = torch.zeros(cs, dtype=torch.bool, device=dev)
     window_mask[wb] = True
 
-    gated = gate_enabled(cfg)
+    gated = gate_enabled(cfg, mesh)
     relax_iters = 0
     if gated:
         es = [0, 0, 0] if enter_shift is None else enter_shift
         (final_dist, final_coc, dist_win, coc_win, changed_blk_d, gate_level,
          slab_vox, dmax_new, p1c_new, sync_ms) = _gated_canvas_merge(
             state, canvas_type, new_type_win, old_type_win, off, window_mask,
-            present, es, cfg)
+            present, es, cfg, mesh)
     elif cfg.merge_mode == "canvas_edt":
         # one exact EDT over the whole canvas, then the same keep-old / take
-        full = batch_edt(canvas_type, sum(cs))
+        full = (batch_edt_sharded(canvas_type, sum(cs), mesh)
+                if sharded_edt_ok(cs, mesh)
+                else batch_edt(canvas_type, sum(cs)))
         obs = canvas_type != VOX_UNKNOWN
         final_dist, final_coc, dist, coc = _finalize(
             cfg, state.dist_sq, state.coc, full, obs, _expand_blocks(present),
@@ -497,7 +521,8 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
             tuple(c // 4 for c in cs), EMPTY_VALUE, dtype=torch.int32,
             device=dev)),
         p1c=p1c_new if gated else state.p1c,
-        p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg), device=dev),
+        p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg, mesh),
+                            device=dev),
     )
 
     outputs = {
@@ -631,7 +656,8 @@ SENSORS = {"scan": scan_sensor, "depth": depth_sensor,
 def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
                   origin_blk, input_pointcloud: bool, use_fence: bool = True,
                   compact_cols=None, has_scrolls: bool = True, points=None,
-                  pts_valid=None, sensor_data=None, sensor_kind=None):
+                  pts_valid=None, sensor_data=None, sensor_kind=None,
+                  mesh=None):
     """A planned run of K frames (the JAX package's replay_frames and its
     scan program, as a Python loop).
 
@@ -646,7 +672,7 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
     pts_valid [K, N, 3] / [K, N] (the point-cloud model, transformed as
     fuse_raycast rounds it) or sensor_data [K, ...] with sensor_kind
     "scan", "depth" or "multiscan" (each frame's ranges, depth image or
-    ring image).
+    ring image).  mesh: as merge_frame's.
 
     Every frame runs merge_frame with its enter_shift; only the last emits
     its window outputs.  Returns (state', last outputs, changed_union
@@ -692,7 +718,7 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
         state, out = merge_frame(
             state, inst, cnt, pvt, origin, off, fence, cfg=cfg,
             input_pointcloud=input_pointcloud, use_fence=use_fence,
-            enter_shift=enter_shift, emit_outputs=k == n - 1)
+            enter_shift=enter_shift, emit_outputs=k == n - 1, mesh=mesh)
         changed_union = changed_union | out["changed_blk"]
         for key in SCALAR_OUTPUTS:
             ys[key].append(out[key])

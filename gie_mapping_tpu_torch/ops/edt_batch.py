@@ -11,6 +11,21 @@ envelope, z-major lanes):
 and, on a one-voxel-deep (Z == 1) grid, phase 1 then the generic
 ops/kernels/envelope.py::envelope along x on [X, 1, Y], with no phase 3.
 
+Over a device mesh (parallel/mesh.py), batch_edt_sharded /
+batch_edt_sharded_slab run the JAX package's sharded arms: each phase on
+the shard of mesh device i, the two phase boundaries as all_to_all
+reshards (the distributed separable-transform layout):
+
+  phase 1 (along y)   phase1_packed on the x-shard          [X/n, Y, Z]
+  reshard 1           [X/n, Z, Y] -> all_to_all              [X, Z/n, Y]
+  phase 2 (along x)   envelope_packed                        [X, Z/n, Y]
+  reshard 2           [Z/n, X, Y] -> all_to_all              [Z, X/n, Y]
+  phase 3 (along z)   the generic envelope                   [Z, X/n, Y]
+
+then the x-shards' packed words gather to home.  Phase 3 runs the generic
+envelope on the resharded layout, as the JAX package's sharded path does,
+not envelope_mid; both are exact, so the outputs equal batch_edt's.
+
 Outputs are bit-identical to the JAX package's batch_edt / batch_edt_slab:
   dist_sq int32 [..] squared distance (EMPTY_VALUE where no site reachable),
   coc int32 [.., 3] canvas coordinate of the closest site (INVALID_COC),
@@ -24,6 +39,7 @@ from ..utils.constants import EMPTY_VALUE, INVALID_COC
 from .kernels.envelope import (env_idx_bits, envelope, envelope_mid,
                                envelope_packed)
 from .kernels.phase1 import phase1_pack_bits, phase1_packed
+from ..parallel.mesh import all_to_all, gather_x, split_x
 
 _BIG = 1 << 28  # "infinite" squared cost of a lane without a site
 
@@ -117,3 +133,67 @@ def batch_edt_slab(vox_type: torch.Tensor, x0: int, y0: int, *, sx: int,
     pay3b = _zyx(pay3o)                                          # [sx, sy, Z]
     return _finish(d3, pay3b >> 11, (pay3b >> 1) & ((1 << 10) - 1), coc_z,
                    (pay3b & 1) > 0)
+
+
+def sharded_edt_ok(shape, mesh) -> bool:
+    """Whether batch_edt_sharded supports this (shape, mesh)."""
+    if mesh is None:
+        return False
+    X, Y, Z = shape
+    n = mesh.size
+    return n > 1 and Z > 1 and X % n == 0 and Z % n == 0
+
+
+def _edt_sharded(vox_type, max_width, mesh, y0=0, sy=None):
+    """The sharded chain over the y lanes [y0, y0 + sy) (all of x and z).
+    Returns the canvas-layout outputs [X, sy, Z] on home."""
+    X, Y, Z = vox_type.shape
+    if not sharded_edt_ok(vox_type.shape, mesh):
+        raise ValueError(f"the sharded EDT needs Z > 1 and X, Z divisible "
+                         f"by the mesh size {mesh.size}; got {X}x{Y}x{Z}")
+    sy = Y if sy is None else sy
+    if not 0 <= y0 <= Y - sy:
+        raise ValueError(f"y-slab [{y0}:+{sy}] outside Y = {Y}")
+    yb = phase1_pack_bits(Y)
+    ib2, ib3 = env_idx_bits(X), env_idx_bits(Z)
+    zbits = (Z - 1).bit_length() + 1
+    # phase 1 on each x-shard; the y-slab is cut before the first reshard,
+    # so both reshards move sy / Y of the canvas
+    f2 = all_to_all([_zyx(phase1_packed(t, max_width)[:, y0:y0 + sy])
+                     for t in split_x(vox_type, mesh)], 1, 0)  # [X, Z/n, sy]
+    d2m, pay3 = [], []
+    for f in f2:
+        d, p = _phase3_inputs(*envelope_packed(f, yb), ib2)
+        d2m.append(d.movedim(1, 0))                             # [Z/n, X, sy]
+        pay3.append(p.movedim(1, 0))
+    d2m, pay3 = all_to_all(d2m, 1, 0), all_to_all(pay3, 1, 0)  # [Z, X/n, sy]
+    packed_c, pay3b = [], []
+    for f, p in zip(d2m, pay3):
+        pk3, pay3s = envelope(f, p)
+        d3c = torch.clamp(pk3 >> ib3, max=(1 << (30 - zbits)) - 1)
+        coc_z3 = pk3 & ((1 << ib3) - 1)
+        packed_c.append(((d3c << (zbits + 1)) | (coc_z3 << 1)
+                         | (pay3s & 1)).movedim(0, 2))          # [X/n, sy, Z]
+        pay3b.append(pay3s.movedim(0, 2))
+    packed_c, pay3b = gather_x(packed_c, mesh), gather_x(pay3b, mesh)
+    return _finish(packed_c >> (zbits + 1), pay3b >> 11,
+                   (pay3b >> 1) & ((1 << 10) - 1),
+                   (packed_c >> 1) & ((1 << zbits) - 1), (packed_c & 1) > 0)
+
+
+def batch_edt_sharded(vox_type: torch.Tensor, max_width: int, mesh) -> dict:
+    """batch_edt over a canvas sharded along x on a 1-D device mesh (the
+    JAX package's batch_edt_sharded; see the module docstring).  vox_type
+    lies on home; the outputs [X, Y, Z] come back there, equal to
+    batch_edt's.  Requires sharded_edt_ok(vox_type.shape, mesh)."""
+    return _edt_sharded(vox_type, max_width, mesh)
+
+
+def batch_edt_sharded_slab(vox_type: torch.Tensor, y0: int, *, sy: int,
+                           max_width: int, mesh) -> dict:
+    """batch_edt_sharded restricted to the y-slab [y0:y0+sy] (all x, all
+    z): x is the sharded axis and z a site axis, so only the y lanes are
+    sliced.  y0 is a host int (the caller clamps it so the slab fits).
+    Returns {"dist_sq", "coc", "valid"} shaped [X, sy, Z] on home, equal to
+    the same voxels of batch_edt."""
+    return _edt_sharded(vox_type, max_width, mesh, y0, sy)

@@ -10,6 +10,7 @@ one loads the cached library.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -146,6 +147,21 @@ def check(name: str, rc: int) -> None:
     """Raise if a kernel launch returned a CUDA error code."""
     if rc != 0:
         raise RuntimeError(f"{name}: CUDA launch failed with error {rc}")
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def on_device_of(t):
+    """A context in which t's CUDA device is the current device.  A raw
+    launch goes to the current device whatever the stream it is given, so
+    every launch on a tensor of another device (a mesh shard, a mapper on
+    "cuda:1") runs inside this; on the current device it is a no-op."""
+    import torch
+
+    idx = t.get_device()
+    return _CURRENT if idx == torch.cuda.current_device() else \
+        torch.cuda.device(idx)
 
 
 def stream_of(t) -> int:

@@ -111,9 +111,10 @@ def gather_block_rows(packed, col_ids, canvas_blocks):
     S = ids.shape[0]
     out = torch.empty((S * cbz, VB ** 3, 3), dtype=torch.int32,
                       device=packed.device)
-    rc = _build.fn("gie_gather_block_rows")(
-        cv.data_ptr(), ids.data_ptr(), out.data_ptr(), S, X, Y, 3 * Z, cbz,
-        _build.stream_of(cv))
+    with _build.on_device_of(cv):
+        rc = _build.fn("gie_gather_block_rows")(
+            cv.data_ptr(), ids.data_ptr(), out.data_ptr(), S, X, Y, 3 * Z, cbz,
+            _build.stream_of(cv))
     gather_block_rows.launches += 1
     _build.check("gie_gather_block_rows", rc)
     return out
@@ -138,9 +139,10 @@ def scatter_block_rows(packed, rows, col_ids, valid, canvas_blocks):
     cv, rs, ids, val = _cuda_args("scatter_block_rows", packed, rows, col_ids,
                                   valid)
     X, Y, Z, _ = packed.shape
-    rc = _build.fn("gie_scatter_block_rows")(
-        cv.data_ptr(), rs.data_ptr(), ids.data_ptr(), val.data_ptr(), S, X, Y,
-        3 * Z, cbz, _build.stream_of(cv))
+    with _build.on_device_of(cv):
+        rc = _build.fn("gie_scatter_block_rows")(
+            cv.data_ptr(), rs.data_ptr(), ids.data_ptr(), val.data_ptr(), S, X, Y,
+            3 * Z, cbz, _build.stream_of(cv))
     scatter_block_rows.launches += 1
     _build.check("gie_scatter_block_rows", rc)
     return packed
@@ -159,9 +161,10 @@ def gather_archive_rows(a_packed, ids):
     a, i = _cuda_args("gather_archive_rows", a_packed, ids)
     K = i.shape[0]
     out = a.new_empty((K, VB ** 3, 3))
-    rc = _build.fn("gie_gather_archive_rows")(
-        a.data_ptr(), i.data_ptr(), out.data_ptr(), K, a.shape[0],
-        _build.stream_of(a))
+    with _build.on_device_of(a):
+        rc = _build.fn("gie_gather_archive_rows")(
+            a.data_ptr(), i.data_ptr(), out.data_ptr(), K, a.shape[0],
+            _build.stream_of(a))
     gather_archive_rows.launches += 1
     _build.check("gie_gather_archive_rows", rc)
     return out
@@ -184,9 +187,10 @@ def scatter_archive_rows(a_packed, rows, ids, valid):
         return scatter_archive_rows_plain(a_packed, rows, ids, valid)
     a, rs, i, val = _cuda_args("scatter_archive_rows", a_packed, rows, ids,
                                valid)
-    rc = _build.fn("gie_scatter_archive_rows")(
-        a.data_ptr(), rs.data_ptr(), i.data_ptr(), val.data_ptr(), K,
-        a.shape[0], _build.stream_of(a))
+    with _build.on_device_of(a):
+        rc = _build.fn("gie_scatter_archive_rows")(
+            a.data_ptr(), rs.data_ptr(), i.data_ptr(), val.data_ptr(), K,
+            a.shape[0], _build.stream_of(a))
     scatter_archive_rows.launches += 1
     _build.check("gie_scatter_archive_rows", rc)
     return a_packed

@@ -222,7 +222,8 @@ def panorama(points, valid, origin, pvt, *, local_size, voxel_width,
         *_host_floats(origin)) + _panorama_config(
             X, Y, Z, n_theta, n_phi, float(voxel_width), float(ogm_min_h),
             float(ogm_max_h))
-    rc = _build.fn("gie_panorama")(args, len(args))
+    with _build.on_device_of(pts):
+        rc = _build.fn("gie_panorama")(args, len(args))
     panorama.launches += 1
     _build.check("gie_panorama", rc)
     return depth, cnt, ep
@@ -345,7 +346,8 @@ def carve(depth, cnt, endpoint_cnt, pvt, origin, *, local_size, voxel_width,
         *_host_floats(origin)) + _carve_config(
             X, Y, Z, float(voxel_width), bool(for_motion_planner),
             int(robot_r2_grids), n_theta, n_phi)
-    rc = _build.fn("gie_carve")(args, len(args))
+    with _build.on_device_of(d):
+        rc = _build.fn("gie_carve")(args, len(args))
     carve.launches += 1
     _build.check("gie_carve", rc)
     return inst, rc_out

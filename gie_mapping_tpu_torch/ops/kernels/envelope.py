@@ -100,9 +100,10 @@ def envelope_packed(packed: torch.Tensor, yb: int):
     src = packed.contiguous()
     key = torch.empty_like(src)
     pay = torch.empty_like(src)
-    rc = _build.fn("gie_envelope_packed")(
-        src.data_ptr(), key.data_ptr(), pay.data_ptr(), N, L, env_idx_bits(N),
-        yb, _build.stream_of(src))
+    with _build.on_device_of(src):
+        rc = _build.fn("gie_envelope_packed")(
+            src.data_ptr(), key.data_ptr(), pay.data_ptr(), N, L, env_idx_bits(N),
+            yb, _build.stream_of(src))
     envelope_packed.launches += 1
     _build.check("gie_envelope_packed", rc)
     return key, pay
@@ -127,9 +128,10 @@ def envelope_mid(f: torch.Tensor, pay: torch.Tensor):
     ps = pay.contiguous()
     key = torch.empty_like(fs)
     pout = torch.empty_like(fs)
-    rc = _build.fn("gie_envelope_mid")(
-        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), B, N,
-        L, env_idx_bits(N), _build.stream_of(fs))
+    with _build.on_device_of(fs):
+        rc = _build.fn("gie_envelope_mid")(
+            fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), B, N,
+            L, env_idx_bits(N), _build.stream_of(fs))
     envelope_mid.launches += 1
     _build.check("gie_envelope_mid", rc)
     return key, pout
@@ -155,9 +157,10 @@ def envelope(f: torch.Tensor, pay: torch.Tensor):
     ps = pay.contiguous()
     key = torch.empty_like(fs)
     pout = torch.empty_like(fs)
-    rc = _build.fn("gie_envelope_mid")(
-        fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), 1, N,
-        L, env_idx_bits(N), _build.stream_of(fs))
+    with _build.on_device_of(fs):
+        rc = _build.fn("gie_envelope_mid")(
+            fs.data_ptr(), ps.data_ptr(), key.data_ptr(), pout.data_ptr(), 1, N,
+            L, env_idx_bits(N), _build.stream_of(fs))
     envelope.launches += 1
     _build.check("gie_envelope_mid", rc)
     return key, pout

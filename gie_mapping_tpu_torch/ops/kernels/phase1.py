@@ -106,9 +106,10 @@ def phase1_packed(vox_type: torch.Tensor, max_width: int,
     if out is None:
         out = torch.empty(vox_type.shape, dtype=torch.int32,
                           device=vox_type.device)
-    rc = _build.fn("gie_phase1_packed")(
-        src.data_ptr(), out.data_ptr(), X, Y, Z, yb, int(max_width),
-        phase1_tile(X, Z, phase1_wave(src.get_device())), _build.stream_of(src))
+    with _build.on_device_of(src):
+        rc = _build.fn("gie_phase1_packed")(
+            src.data_ptr(), out.data_ptr(), X, Y, Z, yb, int(max_width),
+            phase1_tile(X, Z, phase1_wave(src.get_device())), _build.stream_of(src))
     phase1_packed.launches += 1
     _build.check("gie_phase1_packed", rc)
     return out

@@ -86,10 +86,11 @@ def shift_canvas(cv: torch.Tensor, defaults: torch.Tensor,
     # a shift past the canvas empties it whatever its size: clamp the source
     # offset (int32-safe), keep the full shift for the re-anchor (mod 2^16)
     cl = [max(-(n // VB) - 1, min(v, n // VB + 1)) for v, n in zip(s, (X, Y, L // 3))]
-    rc = _build.fn("gie_shift_canvas")(
-        src.data_ptr(), out.data_ptr(), dflt.data_ptr(), X, Y, L,
-        VB * cl[0], VB * cl[1], 3 * VB * cl[2], (VB * s[0]) & 0xFFFF,
-        (VB * s[1]) & 0xFFFF, (VB * s[2]) & 0xFFFF, _build.stream_of(src))
+    with _build.on_device_of(src):
+        rc = _build.fn("gie_shift_canvas")(
+            src.data_ptr(), out.data_ptr(), dflt.data_ptr(), X, Y, L,
+            VB * cl[0], VB * cl[1], 3 * VB * cl[2], (VB * s[0]) & 0xFFFF,
+            (VB * s[1]) & 0xFFFF, (VB * s[2]) & 0xFFFF, _build.stream_of(src))
     shift_canvas.launches += 1
     _build.check("gie_shift_canvas", rc)
     return out

@@ -109,6 +109,18 @@ class BoxWorld:
         return np.where(hit, ts[np.minimum(first_k, n_t - 1)],
                         np.nan).astype(np.float32)
 
+    def ray_march_dense(self, origin, dirs, max_range=30.0, step=0.02):
+        """Dense-sampling marcher (the analytic ray_march's oracle;
+        O(rays x samples) memory and compute: test scale only)."""
+        origin = np.asarray(origin, np.float32)
+        dirs = np.asarray(dirs, np.float32)
+        t = np.arange(step, max_range, step, dtype=np.float32)
+        pts = origin[None, None, :] + dirs[:, None, :] * t[None, :, None]
+        occ = self.occupied(pts)  # [R, T]
+        first = occ.argmax(1)
+        hit = occ.any(1)
+        return np.where(hit, t[first], np.nan).astype(np.float32)
+
     def scan_2d(self, proj: geo.Projection, n_beams=360, theta_min=-np.pi,
                 theta_inc=None, max_range=30.0):
         """Simulated planar LiDAR in the sensor frame (z=0 plane): (ranges

@@ -401,6 +401,46 @@ def load_config(case: str, **overrides) -> MapConfig:
     return PRESETS[case](**overrides)
 
 
+def load_config_yaml(path: str) -> MapConfig:
+    """Load a reference-format yaml (cfg/*.yaml schema) into a MapConfig
+    (the JAX package's load_config_yaml)."""
+    import yaml  # pyyaml; imported where used
+
+    with open(path) as f:
+        raw = yaml.safe_load(f)
+    ogm = raw.get("ogm", {})
+    wave = raw.get("wave", {})
+    hash_cfg = raw.get("hash", {})
+    return MapConfig(
+        data_case=raw.get("data_case", "custom"),
+        for_motion_planner=bool(raw.get("for_motion_planner", False)),
+        robot_r=float(raw.get("robot_r", 0.4)),
+        occupancy_threshold=int(raw.get("occupancy_threshold", 180)),
+        voxel_width=float(raw.get("voxel_width", 0.2)),
+        local_size_m=(
+            float(raw.get("local_size_x", 10.0)),
+            float(raw.get("local_size_y", 10.0)),
+            float(raw.get("local_size_z", 3.0)),
+        ),
+        ogm_min_h=float(ogm.get("min_height", 0.2)),
+        ogm_max_h=float(ogm.get("max_height", 10.0)),
+        fast_mode=bool(wave.get("fast_mode", True)),
+        cutoff_dist=float(wave.get("cutoff_dist", 6.0)),
+        max_blocks=int(hash_cfg.get("block_max", 19997)),
+        display_glb_edt=bool(raw.get("display_glb_edt", True)),
+        display_glb_ogm=bool(raw.get("display_glb_ogm", True)),
+        display_loc_edt=bool(raw.get("display_loc_edt", False)),
+        display_loc_ogm=bool(raw.get("display_loc_ogm", False)),
+        vis_interval=int(raw.get("vis_interval", 1)),
+        profile_loc_rms=bool(raw.get("profile_loc_rms", False)),
+        profile_glb_rms=bool(raw.get("profile_glb_rms", False)),
+        log_name=str(raw.get("log_name", "gie_tpu_log.csv")),
+        is_ext_obsv_3D=bool(raw.get("is_ext_obsv_3D", False)),
+        ugv_height=float(raw.get("ugv_height", -1.0)),
+        vis_height=float(raw.get("vis_height", 1.0)),
+    )
+
+
 # cow-lady vicon->cam extrinsic, hard-coded in the reference
 # (parameters.h:112-118)
 T_V_C = np.array(

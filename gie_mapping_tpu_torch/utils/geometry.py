@@ -82,8 +82,48 @@ class Projection:
                             + z * r[2, :2])[:n_full]
         return out.reshape(rel.shape)
 
+    def g2l(self, pts: torch.Tensor) -> torch.Tensor:
+        """World points (..., 3) into the sensor frame: (pts - trans) @ rot,
+        rounded as the JAX package's eager g2l (XLA's CPU dot on its own):
+        over 32 rows or more, to_local's rule (x and y unfused over whole
+        groups of 8 rows, the rest fused); below 32 rows the same where
+        16 <= rows and rows mod 8 < 4, else every row fused."""
+        rel = pts - self.trans.to(pts.device)
+        n = rel.reshape(-1, 3).shape[0]
+        if n >= 32 or (n >= 16 and n % 8 < 4):
+            return self.to_local(rel)
+        r = self.rot.to(rel.device)
+        x, y, z = rel[..., 0:1], rel[..., 1:2], rel[..., 2:3]
+        return fma_f32(z, r[2], fma_f32(y, r[1], x * r[0]))
+
+    @property
+    def origin(self) -> torch.Tensor:
+        return self.trans
+
+    def compose_matrix(self, T) -> "Projection":
+        """Right-compose with a 4x4 matrix (numpy): new L2G = L2G @ T (the
+        cow-lady vicon->camera extrinsic T_V_C).  Rounded as the JAX
+        package's eager products: every entry of rot @ T[:3, :3] and of
+        rot @ T[:3, 3] is fma(r2, t2, fma(r1, t1, r0 * t0)), then + trans
+        unfused."""
+        r = self.rot
+        T = torch.from_numpy(np.asarray(T, np.float32)).to(r.device)
+
+        def dot(b):  # rot @ b, b [3, k]
+            return fma_f32(r[:, 2:3], b[2], fma_f32(r[:, 1:2], b[1],
+                                                     r[:, 0:1] * b[0]))
+
+        return Projection(rot=dot(T[:3, :3]),
+                          trans=dot(T[:3, 3:4])[:, 0] + self.trans)
+
     def to(self, device) -> "Projection":
         return Projection(self.rot.to(device), self.trans.to(device))
+
+    @staticmethod
+    def identity(device=None) -> "Projection":
+        return Projection(rot=torch.eye(3, dtype=torch.float32, device=device),
+                          trans=torch.zeros(3, dtype=torch.float32,
+                                            device=device))
 
     @staticmethod
     def from_pose(position, quat_wxyz) -> "Projection":
@@ -107,6 +147,31 @@ def pos2coord(p: torch.Tensor, voxel_width: float) -> torch.Tensor:
 def coord2pos(c: torch.Tensor, voxel_width: float) -> torch.Tensor:
     """Global voxel coordinate -> metres of the voxel centre."""
     return c.to(torch.float32) * voxel_width
+
+
+def glb2loc(c: torch.Tensor, pvt) -> torch.Tensor:
+    return c - pvt
+
+
+def loc2glb(c: torch.Tensor, pvt) -> torch.Tensor:
+    return c + pvt
+
+
+def squared_dist(c1: torch.Tensor, c2: torch.Tensor) -> torch.Tensor:
+    """Integer squared distance between int coordinate triples (..., 3)."""
+    d = (c1 - c2).to(torch.int32)
+    return (d * d).sum(dim=-1, dtype=torch.int32)
+
+
+def block_key_of(glb_coord: torch.Tensor) -> torch.Tensor:
+    """Voxel-block key of a glb coordinate: floor division by VB_WIDTH (the
+    reference's get_VB_key shift/mask trick, negatives included)."""
+    return torch.div(glb_coord, 8, rounding_mode="floor")
+
+
+def sub_block_index(glb_coord: torch.Tensor) -> torch.Tensor:
+    """Index of a voxel inside its 8^3 block (floor modulo)."""
+    return torch.remainder(glb_coord, 8)
 
 
 def calculate_pivot(map_center, voxel_width, local_size):

@@ -3,7 +3,7 @@ through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
 these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
-        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli]
+        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli|mesh]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -84,6 +84,20 @@ cow_lady again with --batch 4, scan2D again with --profile), a resume
 from a checkpoint, the raw ring-cloud channel at the laser3D preset and
 the external-observer channel in the fence-churn scenario at the
 cow_lady preset's width.
+
+tests/fixtures/torch_port_mesh_ref.npz, chip_smoke.py's mesh phase: the
+JAX package's mesh path (parallel.mesh.make_mesh(4) over four virtual CPU
+devices; the canvas EDT through batch_edt_sharded / _slab), in about two
+minutes on the CPU.  `slice_*`: the cow-lady slice (as torch_port_cow_ref:
+warmup, 12 frames through process_pointcloud), per frame the canvas origin,
+the gate level and the window-output sha256, then the final state sha256.
+`bench_*`: bench.py's replay (as torch_port_replay_ref's bench part: 3
+frames through process_pointcloud, then the 40-frame circle in one call
+with chunk 40): the 3 online frames' window-output sha256 and gate levels,
+then what the replay fixture holds for it (state, last outputs, payload8,
+counters, every run's per_frame).  The script asserts that the slice takes
+a y-slab level and the full level, and that the replay runs its 40 frames
+as one run with scrolls.
 """
 from __future__ import annotations
 
@@ -106,6 +120,8 @@ OUT_DEPTHCAM = os.path.join(HERE, "torch_port_depthcam_ref.npz")
 OUT_LASER3D = os.path.join(HERE, "torch_port_laser3d_ref.npz")
 OUT_DDA = os.path.join(HERE, "torch_port_dda_ref.npz")
 OUT_CLI = os.path.join(HERE, "torch_port_cli_ref.npz")
+OUT_MESH = os.path.join(HERE, "torch_port_mesh_ref.npz")
+MESH_DEVICES = 4  # the mesh phase's mesh (virtual CPU devices here)
 SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine
@@ -484,6 +500,73 @@ def run_dda(path):
           f"({time.time() - t0:.1f} s)")
 
 
+def run_mesh(path):
+    """The cow-lady slice and bench.py's replay through the JAX mapper over
+    a MESH_DEVICES-device mesh; writes `path`."""
+    from gie_mapping_tpu.models.mapper import VolumetricMapper
+    from gie_mapping_tpu.models.pipeline import _slab_menu
+    from gie_mapping_tpu.parallel.mesh import make_mesh
+    from gie_mapping_tpu.utils import geometry as geo
+    from gie_mapping_tpu.utils.config import cow_lady_config
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+    from gie_mapping_tpu_torch.runtime.datasets import (COW_SLICE_RAYS,
+                                                        cow_lady_bench,
+                                                        cow_lady_slice)
+
+    t0 = time.time()
+    mesh = make_mesh(MESH_DEVICES)
+    assert mesh.size == MESH_DEVICES, mesh
+    overrides, world, poses = cow_lady_slice()
+    cfg = cow_lady_config(**overrides)
+    mapper = VolumetricMapper(cfg, mesh=mesh)
+    mapper.warmup(robot_pos=poses[0][0])
+    rec = {k: [] for k in ("origin", "gate_level", "out_sha")}
+    for i, (pos, quat) in enumerate(poses):
+        proj = geo.Projection.from_pose(pos, quat)
+        pts = world.pointcloud(proj, n_rays=COW_SLICE_RAYS, max_range=8.0,
+                               seed=i)
+        out = mapper.process_pointcloud(proj, pts).fetch()
+        rec["origin"].append(np.asarray(mapper._origin, np.int32))
+        rec["gate_level"].append(int(out.gate_level))
+        rec["out_sha"].append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        print(f"slice frame {i}: gate {out.gate_level} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    levels = np.asarray(rec["gate_level"])
+    n_menu = len(_slab_menu(cfg.canvas_size))
+    assert (levels < n_menu).any() and (levels == n_menu).any(), levels
+    arrays = {"slice_origin": np.stack(rec["origin"]),
+              "slice_gate_level": levels,
+              "slice_out_sha": np.asarray(rec["out_sha"]),
+              "slice_state_sha": np.asarray(state_digest(_state(mapper))),
+              "devices": np.asarray(MESH_DEVICES)}
+
+    runs = _recording_runs()
+    overrides, world, poses, n_online, chunk = cow_lady_bench()
+    projs = [geo.Projection(rot=p.rot.numpy(), trans=p.trans.numpy())
+             for p in poses]
+    clouds = [world.pointcloud(p, n_rays=COW_SLICE_RAYS, max_range=8.0, seed=i)
+              for i, p in enumerate(projs)]
+    cfg = cow_lady_config(**overrides)
+    mapper = VolumetricMapper(cfg, mesh=mesh)
+    pts, val = mapper.stage_pointcloud_batch(clouds)
+    online, online_levels = [], []
+    for i in range(n_online):
+        out = mapper.process_pointcloud(projs[i], pts[i], val[i]).fetch()
+        online.append(output_digest(out.glb_type, out.dist_sq, out.coc))
+        online_levels.append(int(out.gate_level))
+    out = mapper.process_pointcloud_batch(
+        projs[n_online:], pts[n_online:], val[n_online:], chunk=chunk).fetch()
+    arrays.update(_last("bench", mapper, out, cfg, runs))
+    arrays["bench_online_out_sha"] = np.asarray(online)
+    arrays["bench_online_gate_level"] = np.asarray(online_levels)
+    assert mapper.replay_scanned_frames == len(projs) - n_online == chunk
+    assert mapper.replay_scanned_scrolls > 0
+    assert mapper.capacity_report()["arch_dropped"] == 0
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def _jax_cli():
     """The JAX package's CLI module, with the persistent compilation cache
     it turns on at import turned off again (nothing is written outside the
@@ -661,12 +744,14 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
                                        "replay", "depthcam", "laser3d",
-                                       "dda", "cli"))
+                                       "dda", "cli", "mesh"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
+    if args.only in (None, "mesh"):
+        jax.config.update("jax_num_cpu_devices", MESH_DEVICES)
     from gie_mapping_tpu_torch.runtime.datasets import (cow_lady_scroll,
                                                         cow_lady_slice,
                                                         scan2d_flat_path,
@@ -690,6 +775,8 @@ def main():
         run_dda(OUT_DDA)
     if args.only in (None, "cli"):
         run_cli(OUT_CLI)
+    if args.only in (None, "mesh"):
+        run_mesh(OUT_MESH)
 
 
 if __name__ == "__main__":

@@ -130,8 +130,6 @@ def test_main_end_to_end_matches_jax(jcli, monkeypatch, capsys, tmp_path,
 
 def test_refused_options(monkeypatch):
     _reduce(monkeypatch, tcli, tcfg)
-    with pytest.raises(NotImplementedError, match="--mesh"):
-        tcli.main(["scan2D", "--cpu", "--mesh", "2"])
     for flag, value in (("--phase1", "xla"), ("--mid", "off"),
                         ("--gate-pmode", "voxel"), ("--env-variant", "mono")):
         with pytest.raises(NotImplementedError, match="not ported"):
@@ -139,6 +137,9 @@ def test_refused_options(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         tcli.main(["scan2D", "--frames", "1"])  # the card is the default
+    # --mesh N on the card takes the first N cards: none here
+    with pytest.raises(RuntimeError, match="2 CUDA devices"):
+        tcli.main(["scan2D", "--frames", "1", "--mesh", "2"])
 
 
 @pytest.mark.parametrize("case", ["ugv_corridor", "uav_raycast_fine"])

@@ -597,3 +597,68 @@ def test_sensor_replay_on_gpu_matches_cpu(dev, kind):
     assert (b.map_ct, b.replay_scanned_frames, b.replay_scanned_scrolls) == \
         (a.map_ct, a.replay_scanned_frames, a.replay_scanned_scrolls)
     assert b.replay_scanned_scrolls > 0
+
+
+# ---------------------------------------------------------------------------
+# the device mesh: the sharded EDT and the mapper over [card] * n
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_edt_on_gpu_matches_plain(dev, n):
+    """batch_edt_sharded and a y-slab of it over n shards of one card (the
+    kernels at the shard shapes) against the plain single-device chain."""
+    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+
+    shape = (152, 152, 80)
+    t = _types(shape, 0.03, 5)
+    mesh = make_mesh(devices=[dev] * n)
+    ref = eb.batch_edt(t, sum(shape))
+    got = eb.batch_edt_sharded(t.to(dev), sum(shape), mesh)
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k]), k
+    got = eb.batch_edt_sharded_slab(t.to(dev), 40, sy=48, max_width=sum(shape),
+                                    mesh=mesh)
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k][:, 40:88]), k
+
+
+def test_sharded_edt_on_distinct_cards(dev):
+    """The sharded EDT over the first two cards (each shard launched on its
+    own card, reshards peer to peer)."""
+    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    t = _types((64, 48, 16), 0.03, 6)
+    ref = eb.batch_edt(t, 128)
+    got = eb.batch_edt_sharded(t.to(dev), 128, make_mesh(2))
+    for k in ref:
+        assert torch.equal(got[k].cpu(), ref[k]), k
+
+
+def test_replay_mesh_on_gpu_matches_cpu(dev):
+    """process_pointcloud_batch over a 4-shard mesh of the card against the
+    port's single-device run on the CPU: window outputs, per_frame and the
+    checkpoint fields."""
+    from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+
+    cfg = cow_lady_config(voxel_width=0.2, local_size_m=(4.0, 4.0, 1.6),
+                          cutoff_dist=1.0, max_blocks=2048,
+                          max_raycast_points=4096, fuse_raycast=True,
+                          edt_gate_min_vox=0, display_glb_edt=False,
+                          display_glb_ogm=False)
+    poses, clouds = _replay_frames(7, True)
+    res = []
+    for kw in (dict(device="cpu"), dict(mesh=make_mesh(devices=[dev] * 4))):
+        m = VolumetricMapper(cfg, **kw)
+        pts, val = m.stage_pointcloud_batch(clouds)
+        out = m.process_pointcloud_batch(poses, pts, val, chunk=3).fetch()
+        res.append((m, out))
+    (a, oa), (b, ob) = res
+    sa, sb = ms.state_to_numpy(a.state), ms.state_to_numpy(b.state)
+    for k in VolumetricMapper.CHECKPOINT_FIELDS:
+        np.testing.assert_array_equal(sb[k], sa[k], err_msg=k)
+    for k in ("edt", "dist_sq", "coc", "glb_type"):
+        np.testing.assert_array_equal(getattr(ob, k), getattr(oa, k), err_msg=k)
+    assert b.replay_scanned_scrolls > 0
