@@ -125,20 +125,36 @@ Phases, one JSON line each; any failure exits non-zero:
                 process_ext_cloud between two process_pointcloud_batch calls
                 at the cow_lady preset's width (datasets.ext_churn_path)
                 and in the port's frame loop.
- 13. mesh     - the device mesh (parallel/mesh.py) on this card: the
-                cow-lady slice and bench.py's replay (as phases 4 and 8)
-                through VolumetricMapper(cfg, mesh=make_mesh(devices=[card]
-                * 4)), every frame's window outputs, gate levels and origins,
-                the final state, the replay's per_frame scalars, counters
-                and payload8 against the JAX package's mesh run
-                (tests/fixtures/torch_port_mesh_ref.npz), and window outputs
-                and checkpoint fields against the port's single-device run
-                of the same frames; the sharded EDT's kernels (phases 1, 2
-                and the generic envelope) must launch and envelope_mid must
-                not.  Prints both runs' ms per frame beside the card's
-                nvidia-smi line.  With two or more cards, the slice again
-                over distinct cards; else a line that says it was not run.
- 14. profile  - only with --profile: torch.profiler over a second run of
+ 13. mesh     - the map state sharded between frames (parallel/mesh.py: the
+                canvas along x, the archive along blocks where it divides)
+                on this card: the cow-lady slice over [card] * 2 and
+                [card] * 4, bench.py's replay and the scroll path
+                (streaming, the archive, x, z and teleport scrolls) over
+                [card] * 4, through VolumetricMapper(cfg, mesh=...): every
+                frame's window outputs, gate levels and origins, the final
+                state, the replay's per_frame scalars, counters and
+                payload8, the scroll traffic, the stream's leftovers and the
+                host mirror against the JAX package's 4-device mesh run
+                (tests/fixtures/torch_port_mesh_ref.npz), and window outputs,
+                checkpoint fields and the mirror against the port's
+                single-device run of the same frames; the canvas must be
+                x-sharded, the sharded EDT's kernels (phases 1, 2 and the
+                generic envelope) and on the scroll path the five scroll
+                kernels must launch, and envelope_mid must not.  Prints each
+                run's ms per frame, the parent commit's state-on-home mesh
+                beside it where scratch_checkout holds its copy, each
+                shard's bytes and the card's nvidia-smi line.  With two or
+                more cards, the slice again over distinct cards; else a
+                line that says it was not run.
+ 14. multiproc - the multi-process mesh over torch.distributed: one NCCL
+                process per card runs parallel/multihost_demo.py --slice (6
+                frames of the cow-lady slice) from torchrun's environment,
+                against the single-device run and one process over the same
+                shards: outputs, gate levels, state and kernel launches.
+                With one card a world of one process drives two shards on
+                it (every collective still runs through NCCL) and a line
+                says the two-card run waits for a machine with two.
+ 15. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -194,6 +210,8 @@ REF_CLI = os.path.join(ROOT, "tests", "fixtures", "torch_port_cli_ref.npz")
 # the mesh phase (make_torch_port_ref.py --only mesh writes its fixture)
 REF_MESH = os.path.join(ROOT, "tests", "fixtures", "torch_port_mesh_ref.npz")
 MESH_SIZES = (2, 4, 8)  # the sharded EDT's mesh sizes in the kernels phase
+MESH_PATH_SIZES = (2, 4)  # the mesh phase's slice runs over [card] * n
+MULTIPROC_FRAMES = 6  # the multiproc phase's frames of the slice
 CLI_FRAMES = 4
 CLI_CASES = ("cow_lady", "ugv_corridor", "uav_raycast_fine", "depthcam",
              "laser3D", "scan2D")
@@ -792,8 +810,9 @@ def mesh_shard_kernels(dev):
     from gie_mapping_tpu_torch.ops import edt_batch as eb
     from gie_mapping_tpu_torch.ops.kernels import envelope as ke
     from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
-    from gie_mapping_tpu_torch.parallel.mesh import (all_to_all, make_mesh,
-                                                     split_x)
+    from gie_mapping_tpu_torch.parallel.mesh import (all_to_all,
+                                                     canvas_sharding, gather,
+                                                     make_mesh, put)
 
     t = world_canvas(dev)
     X, Y, Z = t.shape
@@ -812,18 +831,19 @@ def mesh_shard_kernels(dev):
     rows = {}
     for n in MESH_SIZES:
         mesh = make_mesh(devices=[dev] * n)
-        got = eb.batch_edt_sharded(t, mw, mesh)
+        xs = put(t, canvas_sharding(mesh))
+        got = {k: gather(v) for k, v in eb.batch_edt_sharded(xs, mw).items()}
         for k in one:
             compare("edt", got[k], one[k])
             compare("edt", got[k], plain[k])
         for _, sy in _slab_menu((X, Y, Z)):
             for y0 in (0, Y - sy):
-                s = eb.batch_edt_sharded_slab(t, y0, sy=sy, max_width=mw,
-                                              mesh=mesh)
+                s = {k: gather(v) for k, v in eb.batch_edt_sharded_slab(
+                    xs, y0, sy=sy, max_width=mw).items()}
                 for k in one:
                     compare("edt", s[k], plain[k][:, y0:y0 + sy])
         # the chain's shard-shape inputs, as _edt_sharded builds them
-        shards = split_x(t, mesh)
+        shards = xs.parts
         p1 = [kp.phase1_packed(a, mw) for a in shards]
         compare("phase1", p1[0], kp.phase1_packed_plain(shards[0], mw))
         f2 = all_to_all([eb._zyx(a) for a in p1], 1, 0)
@@ -1365,7 +1385,9 @@ def envelope_generic(dev, results, parent):
         old = None if pke is None else (lambda f=f, pay=pay: pke.envelope(f, pay))
         if old:
             bad += sum(int((a != b).sum()) for a, b in zip(old(), ke.envelope_plain(f, pay)))
-        jobs.append(turns(new, old, "envelope_mid_fh_kernel", "envelope_kernel"))
+        # the parent's generic envelope is phase 3's kernel with B = 1 too
+        jobs.append(turns(new, old, "envelope_mid_fh_kernel",
+                          "envelope_mid_fh_kernel"))
     torch.cuda.synchronize()
     require(bad == 0, "kernels", f"envelope differs from its plain version in {bad} words")
     f, pay = cases[5]
@@ -1720,8 +1742,9 @@ def phase_slice(dev):
     return launches, frames, poses
 
 
-def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None):
-    """Drive the scroll path through VolumetricMapper.process_pointcloud;
+def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None, mesh=None):
+    """Drive the scroll path through VolumetricMapper.process_pointcloud (on
+    `dev`, or over `mesh`);
     the launch counters of `wrappers` are zeroed right before the first
     frame and `loop_ctx` wraps the frame loop alone.  Returns (mapper,
     per-frame records, the warnings caught)."""
@@ -1732,9 +1755,10 @@ def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None):
 
     from gie_mapping_tpu_torch.map_state import np_scroll_counts, output_digest
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
+    from gie_mapping_tpu_torch.parallel.mesh import to_numpy
     from gie_mapping_tpu_torch.utils import geometry as geo
 
-    mapper = VolumetricMapper(cfg, device=dev)
+    mapper = VolumetricMapper(cfg, device=None if mesh else dev, mesh=mesh)
     mapper.warmup(robot_pos=poses[0][0])
     staged = [mapper.stage_pointcloud(p) for p in frames]
     torch.cuda.synchronize()
@@ -1773,7 +1797,7 @@ def run_scroll(dev, cfg, frames, poses, wrappers=(), loop_ctx=None):
             n_arch = int(mapper.state.n_arch)
             old = np.zeros(3, np.int64) if before is None else before
             ex, en = (np_scroll_counts(present, mapper._origin - old,
-                                       mapper.state.arch_keys[:n_arch].cpu().numpy(),
+                                       to_numpy(mapper.state.arch_keys)[:n_arch],
                                        n_arch, mapper._origin)
                       if scrolled else (0, 0))
             gt = out.glb_type
@@ -2032,26 +2056,80 @@ def phase_scan(dev, wrappers, flat):
     return launches
 
 
-def phase_mesh(dev, wrappers, smi, frames, poses):
-    """The cow-lady slice and bench.py's replay through
-    VolumetricMapper(cfg, mesh=...) over the fixture's mesh size on this
-    card ([dev] * n), against the JAX package's mesh run
-    (tests/fixtures/torch_port_mesh_ref.npz) and the port's single-device
-    run of the same frames in this process; with two or more cards the
-    slice again over distinct cards.  Returns the launch counts of the
-    mesh runs."""
+def shard_bytes(state) -> dict:
+    """Bytes of a MapState by shard: each sharded field's part i counts
+    for shard i; the replicated fields lie on home (shard 0's device)."""
+    from gie_mapping_tpu_torch.parallel.mesh import Sharded
+
+    per, home = {}, 0
+    for f in state.__dataclass_fields__:
+        v = getattr(state, f)
+        if isinstance(v, Sharded):
+            for i, p in enumerate(v.parts):
+                per[i] = per.get(i, 0) + p.numel() * p.element_size()
+        else:
+            home += v.numel() * v.element_size()
+    return {"sharded_bytes_per_shard": [per[i] for i in sorted(per)],
+            "replicated_bytes_on_home": home}
+
+
+def parent_mesh_slice(parent, dev, frames, poses, n):
+    """The parent commit's mesh (the state whole on the mesh's first
+    device, only the EDT sharded) over the slice: ms per frame, or None
+    without the parent's copy."""
+    import importlib
+
+    import numpy as np
+    import torch
+
+    if parent is None:
+        return None
+    name = parent.__name__
+    pm = importlib.import_module(name + ".models.mapper")
+    pmesh = importlib.import_module(name + ".parallel.mesh")
+    pcfg = importlib.import_module(name + ".utils.config")
+    pgeo = importlib.import_module(name + ".utils.geometry")
+    pds = importlib.import_module(name + ".runtime.datasets")
+    overrides, _, _ = pds.cow_lady_slice()
+    m = pm.VolumetricMapper(pcfg.cow_lady_config(**overrides),
+                            mesh=pmesh.make_mesh(devices=[dev] * n))
+    m.warmup(robot_pos=poses[0][0])
+    staged = [m.stage_pointcloud(p) for p in frames]
+    ms = []
+    for (pos, quat), (pts, val) in zip(poses, staged):
+        torch.cuda.synchronize()
+        s, e = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        s.record()
+        m.process_pointcloud(pgeo.Projection.from_pose(pos, quat), pts, val)
+        e.record()
+        torch.cuda.synchronize()
+        ms.append(s.elapsed_time(e))
+    return float(np.mean(ms[1:]))
+
+
+def phase_mesh(dev, wrappers, smi, frames, poses, parent):
+    """The map state sharded between frames (parallel/mesh.py) on this card:
+    the cow-lady slice over [dev] * 2 and [dev] * 4, bench.py's replay and
+    the scroll path (streaming, the archive, teleports) over [dev] * 4,
+    through VolumetricMapper(cfg, mesh=...), against the JAX package's
+    4-device mesh run (tests/fixtures/torch_port_mesh_ref.npz; the JAX mesh
+    results do not depend on its size) and the port's single-device run of
+    the same frames in this process; with two or more cards the slice again
+    over distinct cards.  Prints each run's ms per frame (and the parent's
+    state-on-home mesh where its copy is present), each shard's bytes and
+    the card's nvidia-smi line.  Returns the launch counts of the mesh runs."""
     import numpy as np
     import torch
 
     from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
                                                  state_to_numpy)
     from gie_mapping_tpu_torch.models.mapper import VolumetricMapper
-    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+    from gie_mapping_tpu_torch.parallel import multihost_demo as demo
+    from gie_mapping_tpu_torch.parallel.mesh import Sharded, make_mesh
 
     ph = "mesh"
     ref = np.load(REF_MESH)
     n = int(ref["devices"])
-    mesh = make_mesh(devices=[dev] * n)
     launches = dict.fromkeys(wrappers, 0)
     keep = VolumetricMapper.CHECKPOINT_FIELDS
 
@@ -2059,31 +2137,50 @@ def phase_mesh(dev, wrappers, smi, frames, poses):
         sa, sb = state_to_numpy(a.state), state_to_numpy(b.state)
         return [k for k in keep if not np.array_equal(sa[k], sb[k])]
 
-    # -- the slice -------------------------------------------------------------
-    sm, srecs = run_slice(dev, frames, poses, wrappers.values(), mesh=mesh)
-    got_s = {k: w.launches for k, w in wrappers.items()}
+    def add(got):
+        for k, v in got.items():
+            launches[k] += v
+
+    def sharded_canvas(m, size):
+        parts = [getattr(m.state, f) for f in ("occ_val", "vox_type", "dist_sq", "coc")]
+        return all(isinstance(v, Sharded) and len(v.parts) == size
+                   and v.parts[0].shape[0] == m.cfg.canvas_size[0] // size
+                   for v in parts)
+
+    # -- the slice over 2 and 4 shards -------------------------------------------
     om, orecs = run_slice(dev, frames, poses)
-    bad = [k for k in ("out_sha", "gate_level", "origin")
-           if [r[k] for r in srecs] != ref[f"slice_{k}"].tolist()]
-    if state_digest(state_to_numpy(sm.state)) != str(ref["slice_state_sha"]):
-        bad.append("state_sha")
-    one_bad = same_fields(sm, om)
-    if [r["out_sha"] for r in srecs] != [r["out_sha"] for r in orecs]:
-        one_bad.append("out_sha")
     ms = lambda recs: float(np.mean([r["ms"] for r in recs[1:]]))
-    emit({"phase": ph, "part": "slice", "devices": [str(d) for d in mesh.devices],
-          "launches": got_s, "fixture_mismatch": bad, "one_device_mismatch": one_bad,
-          "gate_levels": [r["gate_level"] for r in srecs],
-          "mesh_ms_per_frame": ms(srecs), "one_device_ms_per_frame": ms(orecs),
-          "nvidia_smi": smi})
-    require(not bad, ph, f"the mesh slice differs from the JAX mesh run in {bad}")
-    require(not one_bad, ph, f"the mesh slice differs from one device in {one_bad}")
-    require(all(got_s[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
-                                      "panorama", "carve"))
-            and got_s["envelope_mid"] == 0, ph,
-            f"the mesh slice must run the sharded EDT's kernels: {got_s}")
-    for k, v in got_s.items():
-        launches[k] += v
+    for size in MESH_PATH_SIZES:
+        mesh = make_mesh(devices=[dev] * size)
+        sm, srecs = run_slice(dev, frames, poses, wrappers.values(), mesh=mesh)
+        got_s = {k: w.launches for k, w in wrappers.items()}
+        bad = [k for k in ("out_sha", "gate_level", "origin")
+               if [r[k] for r in srecs] != ref[f"slice_{k}"].tolist()]
+        if state_digest(state_to_numpy(sm.state)) != str(ref["slice_state_sha"]):
+            bad.append("state_sha")
+        one_bad = same_fields(sm, om)
+        if [r["out_sha"] for r in srecs] != [r["out_sha"] for r in orecs]:
+            one_bad.append("out_sha")
+        emit({"phase": ph, "part": "slice", "shards": size,
+              "devices": [str(d) for d in mesh.devices],
+              "launches": got_s, "fixture_mismatch": bad,
+              "one_device_mismatch": one_bad,
+              "gate_levels": [r["gate_level"] for r in srecs],
+              "mesh_ms_per_frame": ms(srecs), "one_device_ms_per_frame": ms(orecs),
+              "parent_state_on_home_ms_per_frame":
+                  parent_mesh_slice(parent, dev, frames, poses, size),
+              "collective_us": demo.collective_us(mesh, sm.state, sm.cfg),
+              **shard_bytes(sm.state), "one_device_bytes": shard_bytes(om.state),
+              "nvidia_smi": smi})
+        require(sharded_canvas(sm, size), ph, "the canvas is not x-sharded")
+        require(not bad, ph, f"the mesh slice differs from the JAX mesh run in {bad}")
+        require(not one_bad, ph, f"the mesh slice differs from one device in {one_bad}")
+        require(all(got_s[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
+                                          "panorama", "carve"))
+                and got_s["envelope_mid"] == 0, ph,
+                f"the mesh slice must run the sharded EDT's kernels: {got_s}")
+        add(got_s)
+    mesh = make_mesh(devices=[dev] * n)
 
     # -- bench.py's replay -------------------------------------------------------
     cfg, bposes, clouds, n_online, chunk = bench_inputs()
@@ -2114,21 +2211,53 @@ def phase_mesh(dev, wrappers, smi, frames, poses):
     if osha != sha or output_digest(oout.glb_type, oout.dist_sq, oout.coc) \
             != rec["out_sha"]:
         one_bad.append("out_sha")
-    emit({"phase": ph, "part": "bench", "frames": nb, "chunk": chunk,
+    emit({"phase": ph, "part": "bench", "shards": n, "frames": nb, "chunk": chunk,
           "launches": got_b, "fixture_mismatch": bad, "one_device_mismatch": one_bad,
           "gate_levels": rec["pf_gate_level"].tolist(),
           "scanned_frames": rec["scanned_frames"],
           "scanned_scrolls": rec["scanned_scrolls"],
           "mesh_replay_ms_per_frame": ms_m, "one_device_replay_ms_per_frame": ms_1,
-          "nvidia_smi": smi})
+          **shard_bytes(mm.state), "nvidia_smi": smi})
+    require(sharded_canvas(mm, n), ph, "the replay's canvas is not x-sharded")
     require(not bad, ph, f"the mesh replay differs from the JAX mesh run in {bad}")
     require(not one_bad, ph, f"the mesh replay differs from one device in {one_bad}")
     require(all(got_b[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
                                       "panorama", "carve", "shift_canvas"))
             and got_b["envelope_mid"] == 0, ph,
             f"the mesh replay must run the sharded EDT's kernels: {got_b}")
-    for k, v in got_b.items():
-        launches[k] += v
+    add(got_b)
+
+    # -- the scroll path: streaming, the archive, teleports --------------------------
+    scfg, sframes, sposes = scroll_inputs()
+    sc, screcs, caught = run_scroll(dev, scfg, sframes, sposes, wrappers.values(),
+                                    mesh=mesh)
+    got_c = {k: w.launches for k, w in wrappers.items()}
+    one_sc, one_recs, _ = run_scroll(dev, scfg, sframes, sposes)
+    bad = [k for k in ("origin", "gate_level", "out_sha", "exits", "enters",
+                       "n_arch", "leftover")
+           if [r[k] for r in screcs] != ref[f"scroll_{k}"].tolist()]
+    if state_digest(state_to_numpy(sc.state)) != str(ref["scroll_state_sha"]):
+        bad.append("state_sha")
+    if sc.mirror.digest() != str(ref["scroll_mirror_sha"]):
+        bad.append("mirror_sha")
+    one_bad = same_fields(sc, one_sc)
+    if [r["out_sha"] for r in screcs] != [r["out_sha"] for r in one_recs]:
+        one_bad.append("out_sha")
+    if sc.mirror.digest() != one_sc.mirror.digest():
+        one_bad.append("mirror_sha")
+    emit({"phase": ph, "part": "scroll", "shards": n, "frames": len(screcs),
+          "scrolls": sum(r["scrolled"] for r in screcs[1:]),
+          "launches": got_c, "fixture_mismatch": bad, "one_device_mismatch": one_bad,
+          "mesh_ms_per_frame": ms(screcs), "one_device_ms_per_frame": ms(one_recs),
+          "mirror_blocks": len(sc.mirror), "capacity": sc.capacity_report(),
+          **shard_bytes(sc.state), "nvidia_smi": smi})
+    require(sharded_canvas(sc, n), ph, "the scroll path's canvas is not x-sharded")
+    require(not bad, ph, f"the mesh scroll path differs from the JAX mesh run in {bad}")
+    require(not one_bad, ph,
+            f"the mesh scroll path differs from one device in {one_bad}")
+    require(all(got_c[k] > 0 for k in SCROLL_KERNELS), ph,
+            f"the mesh scroll path must run the scroll kernels: {got_c}")
+    add(got_c)
 
     # -- distinct cards ------------------------------------------------------------
     cards = torch.cuda.device_count()
@@ -2143,10 +2272,98 @@ def phase_mesh(dev, wrappers, smi, frames, poses):
         if state_digest(state_to_numpy(dm.state)) != str(ref["slice_state_sha"]):
             dbad.append("state_sha")
         emit({"phase": ph, "part": "distinct_cards", "devices": nd,
-              "fixture_mismatch": dbad, "mesh_ms_per_frame": ms(drecs)})
+              "fixture_mismatch": dbad, "mesh_ms_per_frame": ms(drecs),
+              **shard_bytes(dm.state)})
         require(not dbad, ph, f"the slice over {nd} cards differs in {dbad}")
     emit({"phase": ph, "ok": True, "launches": launches})
     return launches
+
+
+def phase_multiproc(dev, smi):
+    """The multi-process mesh: one NCCL process per card
+    (parallel/multihost_demo.py --slice, from torchrun's environment), the
+    cow-lady slice at the preset's width, against the single-device run
+    and the one-process run over the same shards (both in this process).
+    With one card: a world of one process driving two shards on the card
+    (every collective still goes through NCCL); with two or more: two
+    processes, one card each.  Returns the launch counts of the NCCL ranks'
+    frames."""
+    import socket
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.parallel import multihost_demo as demo
+    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+
+    ph = "multiproc"
+    require(torch.distributed.is_nccl_available(), ph, "NCCL is not available")
+    cards = torch.cuda.device_count()
+    world, per = (2, 1) if cards >= 2 else (1, 2)
+    if world == 1:
+        emit({"phase": ph, "part": "distinct_cards",
+              "not_run": f"{cards} CUDA device: the two-process run over two "
+                         "cards waits for a machine with two"})
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_multiproc_")
+    out = os.path.join(tmp, "group.npz")
+    argv = [sys.executable, "-u", "-m", "gie_mapping_tpu_torch.parallel.multihost_demo",
+            "--slice", "--frames", str(MULTIPROC_FRAMES),
+            "--devices-per-proc", str(per), "--out", out]
+    if world == 1:
+        argv.append("--share-card")
+    procs = []
+    for r in range(world):
+        env = dict(os.environ, RANK=str(r), WORLD_SIZE=str(world), LOCAL_RANK=str(r),
+                   MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        procs.append(subprocess.Popen(argv, cwd=ROOT, env=env, text=True,
+                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
+    t0 = time.time()
+    logs = []
+    try:
+        for p in procs:
+            logs.append(p.communicate(timeout=600)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wall = time.time() - t0
+    require(all(p.returncode == 0 for p in procs), ph,
+            f"a rank failed: {[l[-2000:] for l in logs]}")
+    got = dict(np.load(out))
+    one = demo.run_slice(MULTIPROC_FRAMES, None, dev)
+    shards = ([dev] * per if world == 1
+              else [torch.device("cuda", i) for i in range(world)])
+    ctl = demo.run_slice(MULTIPROC_FRAMES, make_mesh(devices=shards), None)
+    same = lambda a, b, keys: [k for k in keys
+                               if not np.array_equal(a[f"slice/{k}"], b[f"slice/{k}"])]
+    ctl_bad = same(got, ctl, ("out_sha", "gate_level", "state_sha"))
+    one_bad = same(got, one, ("out_sha", "ckpt_sha"))
+    launch = {k.split("/")[-1]: int(v) for k, v in got.items()
+              if k.startswith("slice/launches/")}
+    coll = lambda r: {k.split("/")[-1]: round(float(v), 3) for k, v in r.items()
+                      if k.startswith("slice/collective_us/")}
+    ms = lambda r: float(np.mean(r["slice/ms"][1:]))
+    emit({"phase": ph, "world": world, "devices_per_rank": per,
+          "shards": world * per, "frames": MULTIPROC_FRAMES,
+          "launches_rank0": launch, "controller_mismatch": ctl_bad,
+          "one_device_mismatch": one_bad,
+          "nccl_ms_per_frame": ms(got), "controller_ms_per_frame": ms(ctl),
+          "one_device_ms_per_frame": ms(one), "wall_s": round(wall, 3),
+          "nccl_collective_us": coll(got), "controller_collective_us": coll(ctl),
+          "nvidia_smi": smi})
+    require(not ctl_bad, ph, f"the NCCL run differs from one process over the "
+            f"same shards in {ctl_bad}")
+    require(not one_bad, ph, f"the NCCL run differs from one device in {one_bad}")
+    require(all(launch[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
+                                       "panorama", "carve"))
+            and launch["envelope_mid"] == 0, ph,
+            f"the NCCL ranks must run the sharded EDT's kernels: {launch}")
+    emit({"phase": ph, "ok": True})
+    return launch
 
 
 def timed(fn):
@@ -3039,7 +3256,9 @@ def main(argv=None) -> int:
                               phase_sensor(dev, all_wrappers(), "multiscan"),
                               phase_dda(dev, all_wrappers()),
                               phase_cli(dev, all_wrappers(), smi),
-                              phase_mesh(dev, all_wrappers(), smi, frames, poses)):
+                              phase_mesh(dev, all_wrappers(), smi, frames, poses,
+                                         parent),
+                              phase_multiproc(dev, smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

@@ -10,8 +10,9 @@ Layer map:
              frontiers
   ops/kernels/  wrappers of the hand-written CUDA kernels in csrc/, each
              beside its plain PyTorch version (used for CPU tensors)
-  parallel/  the device mesh: the canvas EDT sharded along x with explicit
-             all_to_all reshards; the state on the mesh's first device
+  parallel/  the device mesh: the map state sharded between frames (the
+             canvas along x, the archive along blocks) over one process or
+             a torch.distributed group; the multi-process demo
   map_state  canvas + archive state, the canvas scroll, stream extraction
   runtime/   synthetic worlds and the host mirror of streamed blocks (numpy)
   utils/     config, geometry, constants

@@ -16,15 +16,20 @@ Examples:
 
 The JAX package's A/B toggles (--env-variant, --phase1, --mid,
 --gate-pmode) accept only the value the port runs; any other value fails
-with the mapper's "not ported" error.  --mesh N runs the canvas EDT
-sharded over N devices (parallel/mesh.py): the first N cards, or with
---cpu N CPU devices, as the JAX CLI's virtual ones; the results equal one
-device's.
+with the mapper's "not ported" error.  --mesh N shards the map state over
+N devices (parallel/mesh.py: the canvas along x, the archive along blocks,
+every stage on the shards): the first N cards, or with --cpu N CPU
+devices, as the JAX CLI's virtual ones; the results equal one device's.
+Under torchrun (`torchrun --nproc-per-node N -m gie_mapping_tpu_torch.cli
+...`) the mesh spans the ranks, one process each over NCCL (gloo with
+--cpu), each driving max(--mesh, 1) devices; rank 0 prints the summary and
+writes --save.
 """
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
 
@@ -138,9 +143,10 @@ def _parser():
                          "in runs of up to K (bit-identical to the "
                          "per-frame loop)")
     ap.add_argument("--mesh", type=int, default=0, metavar="N",
-                    help="shard the canvas EDT along x over an N-device "
-                         "mesh (with --cpu, N CPU devices); bit-identical "
-                         "to one device")
+                    help="shard the map state (the canvas along x, the "
+                         "archive along blocks) over an N-device mesh (with "
+                         "--cpu, N CPU devices; under torchrun, N devices "
+                         "per rank); bit-identical to one device")
     return ap
 
 
@@ -181,11 +187,46 @@ def main(argv=None):
     JSON summary and returns it as a dict."""
     args = _parser().parse_args(argv)
     device = "cpu" if args.cpu else "cuda"
-    mesh = None
-    if args.mesh > 1:
+    mesh = _torchrun_mesh(args)
+    if mesh is not None:
+        device = None
+    elif args.mesh > 1:
         mesh = (make_mesh(devices=["cpu"] * args.mesh) if args.cpu
                 else make_mesh(args.mesh))
         device = None
+    try:
+        return _main(args, device, mesh)
+    finally:
+        if mesh is not None and mesh.group is not None:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
+
+
+def _torchrun_mesh(args):
+    """Under torchrun (RANK, WORLD_SIZE, MASTER_ADDR, MASTER_PORT and
+    LOCAL_RANK in the environment): the process group (NCCL on cards, gloo
+    with --cpu) and a mesh over it, each rank driving max(--mesh, 1) local
+    devices (cards LOCAL_RANK * N .. + N - 1).  Else None."""
+    env = os.environ
+    if "RANK" not in env or "WORLD_SIZE" not in env:
+        return None
+    import torch.distributed as dist
+
+    k = max(args.mesh, 1)
+    local = int(env.get("LOCAL_RANK", env["RANK"]))
+    if args.cpu:
+        devices = ["cpu"] * k
+    else:
+        devices = [torch.device("cuda", local * k + i) for i in range(k)]
+        torch.cuda.set_device(devices[0])
+    dist.init_process_group("gloo" if args.cpu else "nccl", init_method="env://",
+                            rank=int(env["RANK"]),
+                            world_size=int(env["WORLD_SIZE"]))
+    return make_mesh(group=dist.group.WORLD, local_devices=devices)
+
+
+def _main(args, device, mesh):
     cfg = _config(args)
     mapper = VolumetricMapper(cfg, device=device, log_path=args.log,
                               mesh=mesh)
@@ -288,7 +329,8 @@ def main(argv=None):
         "mirror_blocks": len(mapper.mirror) if mapper.mirror else 0,
         "arch_dropped": int(out.arch_dropped),
     }
-    print(json.dumps(summary))
+    if mesh is None or mesh.rank == 0:
+        print(json.dumps(summary))
     return summary
 
 

@@ -15,6 +15,14 @@ the shift are the hand-written kernels of ops/kernels/blockrows.py and
 ops/kernels/shift.py.  The JAX package's dense and XLA-row arms, its static
 z-shift switch and its parking column are TPU workarounds and are not
 carried; results do not depend on the arm.
+
+Over a device mesh (parallel/mesh.py) the canvas fields are x-shards and
+the archive rows are row-shards where max_blocks divides: the scroll's
+block-row traffic pads each x-shard to its block hull and sums the shards'
+rows, each shard fetches the planes its shift brings in from their owners,
+archive rows are written and read by the shard that owns them, and the
+archive directory reduces over the shards, so every shard computes the
+same block ids and slots.
 """
 from __future__ import annotations
 
@@ -27,6 +35,8 @@ import torch
 from .ops.kernels.blockrows import (gather_archive_rows, gather_block_rows,
                                    scatter_archive_rows, scatter_block_rows)
 from .ops.kernels.shift import shift_canvas
+from .parallel.mesh import (Sharded, all_reduce, bounds_of, fetch_rows,
+                            field_sharding, put, smap, to_numpy)
 from .utils.config import MapConfig
 from .utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_UNKNOWN
 
@@ -113,33 +123,46 @@ class MapState:
     p1c_ok: torch.Tensor      # bool scalar
 
     @staticmethod
-    def create(cfg: MapConfig, device=None) -> "MapState":
-        """A fresh map on `device` ("cuda" by default; see resolve_device)."""
+    def create(cfg: MapConfig, device=None, mesh=None) -> "MapState":
+        """A fresh map on `device` ("cuda" by default; see resolve_device),
+        or placed on `mesh` (parallel.mesh.shard_state's rule; each shard
+        is made on its own device)."""
         from .models.pipeline import p1_cache_enabled
 
-        dev = resolve_device(device, "MapState.create")
+        if mesh is not None and device is not None:
+            raise ValueError("MapState.create: device and mesh are exclusive")
+        dev = mesh.home if mesh is not None else resolve_device(
+            device, "MapState.create")
         cs = cfg.canvas_size
-        cb = cfg.canvas_blocks
         B = cfg.max_blocks
-        rows = torch.from_numpy(_PACKED_DEFAULT_ROW.view(np.int32).copy())
+        row = torch.from_numpy(_PACKED_DEFAULT_ROW.view(np.int32).copy())
+
+        def full(name, shape, dtype, fill):
+            sharded = (mesh is not None and field_sharding(name, mesh).axis
+                       is not None and shape[0] % mesh.size == 0)
+            devs, shp = ((mesh.devices, (shape[0] // mesh.size,) + shape[1:])
+                         if sharded else ([dev], shape))
+            parts = [(row.to(d).expand(shp).contiguous() if name == "a_packed"
+                      else torch.full(shp, fill, dtype=dtype, device=d))
+                     for d in devs]
+            return Sharded(mesh, parts, shape[0]) if sharded else parts[0]
+
         return MapState(
-            origin_blk=torch.zeros(3, dtype=torch.int32, device=dev),
-            occ_val=torch.zeros(cs, dtype=torch.uint8, device=dev),
-            vox_type=torch.full(cs, VOX_UNKNOWN, dtype=torch.int8, device=dev),
-            dist_sq=torch.full(cs, EMPTY_VALUE, dtype=torch.int32, device=dev),
-            coc=torch.full(cs + (3,), int(COC_INVALID16), dtype=torch.int16,
-                           device=dev),
-            present=torch.zeros(cb, dtype=torch.bool, device=dev),
-            arch_keys=torch.full((B, 3), int(EMPTY_KEY), dtype=torch.int32,
-                                 device=dev),
-            n_arch=torch.zeros((), dtype=torch.int32, device=dev),
-            a_packed=rows.to(dev).expand(B, ROW_WORDS).contiguous(),
-            arch_dropped=torch.zeros((), dtype=torch.int32, device=dev),
-            dmax_cell=torch.full(tuple(c // 4 for c in cs), EMPTY_VALUE,
-                                 dtype=torch.int32, device=dev),
-            p1c=torch.zeros(cs if p1_cache_enabled(cfg) else (1, 1, 1),
-                            dtype=torch.int32, device=dev),
-            p1c_ok=torch.zeros((), dtype=torch.bool, device=dev),
+            origin_blk=full("origin_blk", (3,), torch.int32, 0),
+            occ_val=full("occ_val", cs, torch.uint8, 0),
+            vox_type=full("vox_type", cs, torch.int8, VOX_UNKNOWN),
+            dist_sq=full("dist_sq", cs, torch.int32, EMPTY_VALUE),
+            coc=full("coc", cs + (3,), torch.int16, int(COC_INVALID16)),
+            present=full("present", cfg.canvas_blocks, torch.bool, False),
+            arch_keys=full("arch_keys", (B, 3), torch.int32, int(EMPTY_KEY)),
+            n_arch=full("n_arch", (), torch.int32, 0),
+            a_packed=full("a_packed", (B, ROW_WORDS), torch.int32, 0),
+            arch_dropped=full("arch_dropped", (), torch.int32, 0),
+            dmax_cell=full("dmax_cell", tuple(c // 4 for c in cs), torch.int32,
+                           EMPTY_VALUE),
+            p1c=full("p1c", cs if p1_cache_enabled(cfg) else (1, 1, 1),
+                     torch.int32, 0),
+            p1c_ok=full("p1c_ok", (), torch.bool, False),
         )
 
 
@@ -147,25 +170,30 @@ FIELDS = tuple(f.name for f in dataclasses.fields(MapState))
 
 
 def state_to_numpy(state: MapState) -> dict:
-    """{field: numpy array} with the JAX package's dtypes (a_packed uint32)."""
+    """{field: numpy array} with the JAX package's dtypes (a_packed uint32);
+    a sharded field is gathered."""
     out = {}
     for name in FIELDS:
-        a = getattr(state, name).detach().cpu().numpy()
+        a = to_numpy(getattr(state, name))
         out[name] = a.view(np.uint32) if name == "a_packed" else a
     return out
 
 
-def state_from_numpy(arrays: dict, device=None) -> MapState:
+def state_from_numpy(arrays: dict, device=None, mesh=None) -> MapState:
     """MapState from {field: numpy array} as `state_to_numpy` gives them (or
     as the JAX package's MapState leaves convert with np.asarray), on
-    `device` ("cuda" by default; see resolve_device)."""
-    dev = resolve_device(device, "state_from_numpy")
+    `device` ("cuda" by default; see resolve_device), or placed on `mesh`
+    (each process copies only its own shards to the devices)."""
+    if mesh is not None and device is not None:
+        raise ValueError("state_from_numpy: device and mesh are exclusive")
+    dev = None if mesh is not None else resolve_device(device, "state_from_numpy")
     kw = {}
     for name in FIELDS:
         a = np.array(arrays[name], order="C")  # a copy; keeps 0-d arrays 0-d
         if name == "a_packed":
             a = a.astype(np.uint32, copy=False).view(np.int32)
-        kw[name] = torch.from_numpy(a).to(dev)
+        kw[name] = (torch.from_numpy(a).to(dev) if mesh is None
+                    else put(a, field_sharding(name, mesh)))
     return MapState(**kw)
 
 
@@ -263,21 +291,34 @@ def shift_block_mask(m: torch.Tensor, shift) -> torch.Tensor:
 
 def _arch_directory(keys, n_arch, origin_blk, canvas_blocks) -> torch.Tensor:
     """Archive-slot directory int32 [bx, by, bz] over the canvas at
-    origin_blk (-1 where no active archive row holds the block)."""
+    origin_blk (-1 where no active archive row holds the block).  Over a
+    row-sharded archive each shard fills the entries of its own rows and
+    the shards' directories reduce by max (active keys are unique)."""
+    if not isinstance(keys, Sharded):
+        return _arch_directory_rows(keys, 0, n_arch, origin_blk, canvas_blocks)
+    home = keys.mesh.home
+    return all_reduce(keys.mesh, [
+        _arch_directory_rows(p, lo, n_arch.to(p.device),
+                             origin_blk.to(p.device), canvas_blocks).to(home)
+        for p, (lo, _) in zip(keys.parts, bounds_of(keys))], "max")
+
+
+def _arch_directory_rows(keys, r0, n_arch, origin_blk, canvas_blocks):
+    """_arch_directory over archive rows [r0, r0 + len(keys))."""
     B = keys.shape[0]
     dev = keys.device
     cbx, cby, cbz = canvas_blocks
     nb = cbx * cby * cbz
     rel = keys - origin_blk.to(torch.int32)[None, :]
     shape = torch.tensor(canvas_blocks, dtype=torch.int32, device=dev)
-    active = torch.arange(B, dtype=torch.int32, device=dev) < n_arch
-    inside = ((rel >= 0) & (rel < shape)).all(-1) & active
+    row = torch.arange(r0, r0 + B, dtype=torch.int32, device=dev)
+    inside = ((rel >= 0) & (rel < shape)).all(-1) & (row < n_arch)
     flat = (rel[:, 0] * cby + rel[:, 1]) * cbz + rel[:, 2]
     idx = torch.where(inside, flat, nb).to(torch.int64)
     directory = torch.full((nb + 1,), -1, dtype=torch.int32, device=dev)
     # active archive keys are unique; entries outside the canvas all land on
     # the dropped slot nb
-    directory.scatter_(0, idx, torch.arange(B, dtype=torch.int32, device=dev))
+    directory.scatter_(0, idx, row)
     return directory[:nb].reshape(canvas_blocks)
 
 
@@ -298,6 +339,146 @@ def _packed_defaults(Z: int, device) -> torch.Tensor:
     return torch.from_numpy(np.tile(_PACKED_DEFAULT, Z).view(np.int32)).to(device)
 
 
+# ---- block-row traffic over a whole or an x-sharded canvas ----------------
+# An x-shard [lo, hi) need not hold whole blocks: it is padded with zeros to
+# its block hull [8 floor(lo / 8), 8 ceil(hi / 8)), where the kernels run on
+# whole blocks; each voxel lies in exactly one shard, so the shards' rows sum
+# to the canvas's rows (x + 0 == x on int32 words).
+
+def _hull(p, lo, hi):
+    """p (dim-0 range [lo, hi)) zero-padded to its block hull; returns
+    (hull, first block, end block)."""
+    b0, b1 = lo // VB_WIDTH, -(-hi // VB_WIDTH)
+    if (lo, hi) == (b0 * VB_WIDTH, b1 * VB_WIDTH):
+        return p, b0, b1
+    q = p.new_zeros(((b1 - b0) * VB_WIDTH,) + tuple(p.shape[1:]))
+    q[lo - b0 * VB_WIDTH:hi - b0 * VB_WIDTH] = p
+    return q, b0, b1
+
+
+def _local_cols(col_ids, b0, b1, cby):
+    """Column ids of the block range [b0, b1) in x: (local ids, inside)."""
+    inside = (col_ids >= b0 * cby) & (col_ids < b1 * cby)
+    return torch.where(inside, col_ids - b0 * cby, 0), inside
+
+
+def _gather_blocks(packed, col_ids, cb):
+    """gather_block_rows of the packed canvas (whole or Sharded) -> rows
+    [S * cbz, 512, 3] on home."""
+    if not isinstance(packed, Sharded):
+        return gather_block_rows(packed, col_ids, cb)
+    rows = []
+    for p, (lo, hi) in zip(packed.parts, bounds_of(packed)):
+        q, b0, b1 = _hull(p, lo, hi)
+        ids, inside = _local_cols(col_ids.to(p.device), b0, b1, cb[1])
+        r = gather_block_rows(q, ids, (b1 - b0, cb[1], cb[2]))
+        rows.append(torch.where(inside.repeat_interleave(cb[2])[:, None, None],
+                                r, 0))
+    return all_reduce(packed.mesh, rows, "sum")
+
+
+def _scatter_blocks(packed, rows, col_ids, valid, cb):
+    """scatter_block_rows into the packed canvas (whole, in place, or
+    Sharded: each shard writes its x-part of each block)."""
+    if not isinstance(packed, Sharded):
+        return scatter_block_rows(packed, rows, col_ids, valid, cb)
+    out = []
+    for p, (lo, hi) in zip(packed.parts, bounds_of(packed)):
+        q, b0, b1 = _hull(p, lo, hi)
+        dev = p.device
+        ids, inside = _local_cols(col_ids.to(dev), b0, b1, cb[1])
+        v = valid.to(dev) * inside.repeat_interleave(cb[2]).to(torch.int32)
+        q = scatter_block_rows(q.contiguous(), rows.to(dev), ids, v,
+                               (b1 - b0, cb[1], cb[2]))
+        out.append(q[lo - b0 * VB_WIDTH:hi - b0 * VB_WIDTH])
+    return Sharded(packed.mesh, out, packed.extent)
+
+
+def _gather_archive(a_packed, slots):
+    """gather_archive_rows of the archive (whole or row-sharded: each shard
+    gathers the rows it owns, the rest are zero, and the shards' rows sum)
+    -> rows on home."""
+    if not isinstance(a_packed, Sharded):
+        return gather_archive_rows(a_packed, slots)
+    rows = []
+    for p, (lo, hi) in zip(a_packed.parts, bounds_of(a_packed)):
+        sl = slots.to(p.device)
+        own = (sl >= lo) & (sl < hi)
+        r = gather_archive_rows(p, torch.where(own, sl - lo, 0))
+        rows.append(torch.where(own[:, None, None], r, 0))
+    return all_reduce(a_packed.mesh, rows, "sum")
+
+
+def _scatter_archive(a_packed, rows, slots, valid):
+    """scatter_archive_rows into the archive (whole or row-sharded: each
+    shard writes the rows it owns), in place."""
+    if not isinstance(a_packed, Sharded):
+        return scatter_archive_rows(a_packed, rows, slots, valid)
+    for p, (lo, hi) in zip(a_packed.parts, bounds_of(a_packed)):
+        dev = p.device
+        sl = slots.to(dev)
+        own = (sl >= lo) & (sl < hi) & (valid.to(dev) != 0)
+        scatter_archive_rows(p, rows.to(dev), torch.where(own, sl - lo, 0),
+                             own.to(torch.int32))
+    return a_packed
+
+
+def _write_keys(keys, slot, abs_key):
+    """keys with keys[slot[b]] = abs_key[b] where slot[b] < B (slot B is the
+    non-write)."""
+    def rows(part, lo, hi):
+        sl = slot.to(part.device)
+        ext = torch.cat([part, part[:1]])
+        ext[torch.where((sl >= lo) & (sl < hi), sl - lo,
+                        hi - lo).to(torch.int64)] = abs_key.to(part.device)
+        return ext[:hi - lo]
+
+    if not isinstance(keys, Sharded):
+        return rows(keys, 0, keys.shape[0])
+    return Sharded(keys.mesh, [rows(p, lo, hi) for p, (lo, hi)
+                               in zip(keys.parts, bounds_of(keys))],
+                   keys.extent)
+
+
+def _shift_packed(packed, shift, cb):
+    """The scroll's one-pass shift (shift_canvas, cocs re-anchored) of the
+    packed canvas [X, Y, Z, 3], whole or Sharded.  A shard's new planes come
+    from the shards that held them: it fetches the old planes of its block
+    hull moved by the x-shift (defaults beyond the canvas) and shifts that
+    window, whose extent is whole blocks, by the same shift."""
+    X, Y, Z, _ = packed.shape
+    if not isinstance(packed, Sharded):
+        dev = packed.device
+        return shift_canvas(packed.reshape(X, Y, 3 * Z), _packed_defaults(Z, dev),
+                            shift).reshape(X, Y, Z, 3)
+    mesh = packed.mesh
+    # past the canvas everything is default, whatever the shift
+    sx = max(-cb[0], min(int(shift[0]), cb[0]))
+    sh = (sx, int(shift[1]), int(shift[2]))
+
+    def hull(g):
+        lo, hi = g * packed.step, (g + 1) * packed.step
+        return (lo // VB_WIDTH * VB_WIDTH, -(-hi // VB_WIDTH) * VB_WIDTH)
+
+    # the window [w0, w1) that the shift reads through: the hull and the
+    # hull moved by the x-shift; only the moved hull holds old planes
+    hulls = [hull(g) for g in range(mesh.size)]
+    srcs = [(a + VB_WIDTH * sx, b + VB_WIDTH * sx) for a, b in hulls]
+    got = fetch_rows(mesh, [p.reshape(p.shape[0], Y, 3 * Z) for p in packed.parts],
+                     X, srcs)
+    out = []
+    for i, (p, (lo, hi)) in enumerate(zip(packed.parts, bounds_of(packed))):
+        (a, b), (s0, _) = hulls[mesh.first + i], srcs[mesh.first + i]
+        w0, w1 = a + min(0, VB_WIDTH * sx), b + max(0, VB_WIDTH * sx)
+        dflt = _packed_defaults(Z, p.device)
+        src = dflt.reshape(1, 1, 3 * Z).expand(w1 - w0, Y, 3 * Z).clone()
+        o = max(s0, 0) - w0
+        src[o:o + got[i].shape[0]] = got[i]
+        res = shift_canvas(src, dflt, sh)
+        out.append(res[lo - w0:hi - w0].reshape(hi - lo, Y, Z, 3))
+    return Sharded(mesh, out, packed.extent)
+
+
 def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
                compact_cols: int | None = None,
                old_origin_blk=None) -> MapState:
@@ -314,8 +495,7 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     The input state is consumed: its archive `a_packed` is updated in place."""
     cb = cfg.canvas_blocks
     cbx, cby, cbz = cb
-    X, Y, Z = cfg.canvas_size
-    B = state.arch_keys.shape[0]
+    B = cfg.max_blocks
     dev = state.present.device
     new = np.asarray(new_origin_blk, np.int64).reshape(3)
     old = (state.origin_blk.cpu().numpy() if old_origin_blk is None
@@ -346,31 +526,29 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
 
     bidx_all = torch.arange(cbx * cby * cbz, dtype=torch.int32, device=dev)
     abs_key = _block_pos_vox(bidx_all, cb) // VB_WIDTH + old_t[None, :]
-    keys_ext = torch.cat([state.arch_keys, state.arch_keys[:1]])
-    keys_ext[slot.to(torch.int64)] = abs_key  # row B collects the non-writes
-    new_keys = keys_ext[:B]
+    new_keys = _write_keys(state.arch_keys, slot, abs_key)
     n_need = need_new.sum(dtype=torch.int32)
     granted = torch.minimum(n_need, B - state.n_arch)
     dropped = n_need - granted
 
-    packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
+    packed = smap(pack_voxels, state.occ_val, state.vox_type, state.dist_sq,
+                  state.coc)
     jz = torch.arange(cbz, dtype=torch.int32, device=dev)
     # archive rows anchor cocs to their OWN block origin
     cids, cidv = _compact_ids(exits.any(2).reshape(-1), compact_cols)
-    crows = gather_block_rows(packed, cids, cb)
+    crows = _gather_blocks(packed, cids, cb)
     bidx = cids[:, None] * cbz + jz[None, :]
     crows = shift_packed_coc(
         crows, -_block_pos_vox(bidx.reshape(-1), cb)[:, None, :])
     cslot = torch.where(cidv[:, None], slot[bidx.to(torch.int64)], B).reshape(-1)
     aval = cslot < B
-    a_packed = scatter_archive_rows(state.a_packed, crows,
-                                    torch.where(aval, cslot, 0),
-                                    aval.to(torch.int32))
+    a_packed = _scatter_archive(state.a_packed, crows,
+                                torch.where(aval, cslot, 0),
+                                aval.to(torch.int32))
     n_arch = state.n_arch + granted
 
     # ---- 2. one-pass shift of the canvas, cocs re-anchored --------------
-    packed = shift_canvas(packed.reshape(X, Y, 3 * Z),
-                          _packed_defaults(Z, dev), shift).reshape(X, Y, Z, 3)
+    packed = _shift_packed(packed, shift, cb)
     present = shift_fill(state.present, shift, False)
     # the per-cell dist bound rolls with the canvas (a block is 2 cells);
     # exposed cells reset to -1, restored cells get the conservative max
@@ -389,14 +567,14 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     bidx2 = (cids2[:, None] * cbz + jz[None, :]).to(torch.int64)
     valid_b = entering.reshape(-1)[bidx2] & cidv2[:, None]
     slot_b = torch.where(valid_b, gslot[bidx2], 0).reshape(-1)
-    grows = gather_archive_rows(a_packed, slot_b)
+    grows = _gather_archive(a_packed, slot_b)
     # entering rows re-anchor block-relative -> new-canvas-relative
     grows = shift_packed_coc(grows, _block_pos_vox(bidx2.reshape(-1), cb)[:, None, :])
-    packed = scatter_block_rows(packed, grows, cids2,
-                                valid_b.reshape(-1).to(torch.int32), cb)
+    packed = _scatter_blocks(packed, grows, cids2,
+                             valid_b.reshape(-1).to(torch.int32), cb)
     present = present | entering
 
-    occ_val, vox_type, dist_sq, coc = unpack_voxels(packed)
+    occ_val, vox_type, dist_sq, coc = smap(unpack_voxels, packed)
     return dataclasses.replace(
         state, origin_blk=new_t, occ_val=occ_val, vox_type=vox_type,
         dist_sq=dist_sq, coc=coc, present=present, arch_keys=new_keys,
@@ -442,8 +620,9 @@ def stream_extract(state: MapState, changed_blk, carry_blk, rot: int = 0, *,
     ids = torch.where(valid, skey % ncols, 0)
     served = col_changed & (key <= skey[k_cols - 1])
     leftover = want & ~served.reshape(cbx, cby, 1)
-    packed = pack_voxels(state.occ_val, state.vox_type, state.dist_sq, state.coc)
-    rows = gather_block_rows(packed, ids, cb)
+    packed = smap(pack_voxels, state.occ_val, state.vox_type, state.dist_sq,
+                  state.coc)
+    rows = _gather_blocks(packed, ids, cb)
     blk_mask = want.reshape(ncols, cbz)[ids.to(torch.int64)] & valid[:, None]
     return ids, valid, rows, blk_mask, leftover
 

@@ -17,8 +17,9 @@ boxes) and `process_multiscan_cloud` (a raw ring cloud), checkpoints
 (`save` / `load`, the JAX package's file format), the CSV log
 (`log_path`) and the ground-truth RMSE checks (`profile_loc_rms`,
 `profile_glb_rms`).  The mapper runs on the CUDA device unless it is
-given another, or over a device mesh (`mesh=`, parallel/mesh.py: the state
-on the mesh's first device, the canvas EDT sharded across it).
+given another, or over a device mesh (`mesh=`, parallel/mesh.py: the
+canvas sharded along x and the archive along blocks between frames, every
+stage run on the shards; one process or one per rank of a process group).
 """
 from __future__ import annotations
 
@@ -31,7 +32,7 @@ import torch
 
 from ..map_state import (MapState, canvas_geometry, resolve_device,
                          shift_block_mask, state_from_numpy, stream_extract)
-from ..parallel.mesh import shard_state
+from ..parallel.mesh import to_numpy
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
@@ -255,9 +256,11 @@ class VolumetricMapper:
     """The mapping engine: feed poses + sensor frames, read cost maps.
     `device` defaults to "cuda" (an error without a card); pass
     device="cpu" to run the kernels' plain versions on the CPU.  `mesh`
-    (parallel.mesh.make_mesh; exclusive with `device`) places the state on
-    the mesh's first device and runs the canvas EDT sharded over the mesh,
-    with results equal to one device's.  With `log_path` (or a profile
+    (parallel.mesh.make_mesh; exclusive with `device`) shards the state
+    over the mesh as the JAX package does (the canvas along x, the archive
+    along blocks where max_blocks divides) and runs every stage on the
+    shards, with results equal to one device's; the window outputs are
+    assembled on every process's home device.  With `log_path` (or a profile
     flag) every frame writes a CSV row (runtime/logger.py; in memory when
     log_path is None)."""
 
@@ -284,7 +287,7 @@ class VolumetricMapper:
         self.cfg = cfg
         self.mesh = mesh
         self.device = resolve_device(device, "VolumetricMapper")
-        self.state = self._placed(MapState.create(cfg, self.device))
+        self.state = self._fresh_state()
         self.ext_obs = _ExtObs(cfg)
         self._origin = None  # host mirror of the canvas origin
         self._last_pvt = None
@@ -321,9 +324,11 @@ class VolumetricMapper:
 
             self.gt_checker = GroundTruthChecker()
 
-    def _placed(self, state: MapState) -> MapState:
-        """`state` placed on the mesh (shard_state), or as it is."""
-        return state if self.mesh is None else shard_state(state, self.mesh)
+    def _fresh_state(self) -> MapState:
+        """A fresh map on the mapper's device or placed on its mesh."""
+        if self.mesh is None:
+            return MapState.create(self.cfg, self.device)
+        return MapState.create(self.cfg, mesh=self.mesh)
 
     def warmup(self, robot_pos=(0.0, 0.0, 0.0)):
         """Run one empty frame on a throwaway state so the first real frame
@@ -333,9 +338,7 @@ class VolumetricMapper:
         cfg = self.cfg
         pvt, origin_blk, off = self._frame_geometry(
             np.asarray(robot_pos, np.float32))
-        throwaway, shift = scroll_step(
-            self._placed(MapState.create(cfg, self.device)), origin_blk,
-            cfg=cfg)
+        throwaway, shift = scroll_step(self._fresh_state(), origin_blk, cfg=cfg)
         fence, fence_on = self._fence_args(pvt)
         zeros8 = torch.zeros(cfg.local_size, dtype=torch.int8, device=self.device)
         zeros32 = torch.zeros(cfg.local_size, dtype=torch.int32, device=self.device)
@@ -570,17 +573,25 @@ class VolumetricMapper:
                          "present", "arch_keys", "n_arch", "a_packed",
                          "arch_dropped")
 
+    @property
+    def _host_owner(self) -> bool:
+        """Whether this process owns the host-side products (the mirror,
+        checkpoint files): the single controller, or rank 0 of a group."""
+        return self.mesh is None or self.mesh.rank == 0
+
     def save(self, path: str):
         """Write the map to a compressed npz in the JAX package's format
         (version 3: the same keys and dtypes, a_packed as uint32), so a file
-        loads in either package."""
+        loads in either package.  Under a process group every rank takes
+        part in the gather and rank 0 writes."""
         arrays = {}
         for k in self.CHECKPOINT_FIELDS:
-            a = getattr(self.state, k).cpu().numpy()
+            a = to_numpy(getattr(self.state, k))  # a sharded field gathered
             arrays[f"state/{k}"] = a.view(np.uint32) if k == "a_packed" else a
         arrays["meta/map_ct"] = np.asarray(self.map_ct)
         arrays["meta/version"] = np.asarray(3)  # v3: relative coc anchors
-        np.savez_compressed(path, **arrays)
+        if self._host_owner:  # every rank gathers; rank 0 writes
+            np.savez_compressed(path, **arrays)
 
     def load(self, path: str):
         """Read a version-3 checkpoint of either package (the flat [B, 1536]
@@ -588,8 +599,8 @@ class VolumetricMapper:
         the JAX package, the per-cell distance bound and the phase-1 cache
         are not stored: the bound resets to EMPTY_VALUE and the cache is
         marked stale (the gate's first frame runs its full branch), and the
-        next frame re-places the canvas.  Under a mesh the state is placed
-        on it again."""
+        next frame re-places the canvas.  Under a mesh each process copies
+        its own shards of the file's arrays to its devices."""
         raw = np.load(path)
         version = int(raw["meta/version"]) if "meta/version" in raw.files else 1
         if version != 3:
@@ -606,7 +617,8 @@ class VolumetricMapper:
         arrays["p1c"] = np.zeros((1, 1, 1), np.int32)  # replaced below
         arrays["p1c_ok"] = np.zeros((), bool)
         p1c = self.state.p1c  # kept, as in the JAX package (marked stale)
-        self.state = self._placed(state_from_numpy(arrays, self.device))
+        self.state = (state_from_numpy(arrays, self.device) if self.mesh is None
+                      else state_from_numpy(arrays, mesh=self.mesh))
         self.state.p1c = p1c
         self.map_ct = int(raw["meta/map_ct"])
         self._origin = None  # the next frame re-syncs the canvas
@@ -618,8 +630,10 @@ class VolumetricMapper:
         phases: this tick runs the on-device compaction (stream_extract) and
         starts the copies; the rows are ingested on the NEXT tick (or by
         flush_stream), so the copy overlaps the following frames.  Columns
-        beyond the per-tick cap carry over in a device-resident mask."""
-        if self.mirror is None:
+        beyond the per-tick cap carry over in a device-resident mask.  Under
+        a mesh the compaction sums the shards' rows on every process; only
+        the mirror's owner (rank 0 of a process group) copies them."""
+        if self.mirror is None and self._host_owner:
             from ..runtime.host_mirror import HostMirror
 
             self.mirror = HostMirror(self.cfg)
@@ -638,6 +652,8 @@ class VolumetricMapper:
         self._stream_rot = (self._stream_rot + k_cols) % ncols
         self._stream_carry = leftover
         self._stream_k_cols = k_cols
+        if not self._host_owner:
+            return
         lo_cnt = leftover.any(2).sum(dtype=torch.int32)
         host, ev = self._to_host("stream", (ids, valid, rows, blk_mask, lo_cnt))
         self._stream_pending = (host, ev, np.asarray(origin_blk).copy())

@@ -21,12 +21,18 @@ per frame.
 Window offsets, pivots and origins are host integers (numpy), as the JAX
 mapper computes them; every crop is a plain slice.
 
-Under a device mesh (`mesh=`, parallel/mesh.py) the state lies on the
-mesh's home device and every stage runs there but the canvas EDT, which
-takes the JAX package's sharded arms: batch_edt_sharded for the full
-branch, batch_edt_sharded_slab (y lanes only: the slab spans all of x)
-for the gate's slabs, and no phase-1 cache.  The gate runs under a mesh
-only where sharded_edt_ok holds, as in the JAX package.
+Under a device mesh (`mesh=`, parallel/mesh.py) the canvas fields are
+x-shards (parallel.mesh.Sharded) between frames and within them: every
+canvas stage is written once over the parts this process drives
+(parallel.mesh.smap, sbuild, splice), the window crops and the frontier
+halo are gathered x-ranges of the window's size, the block and cell masks
+reduce over the shards, and the gate's nine scalars come from one
+all-reduce, so every shard and process takes the same branch.  The canvas
+EDT takes the JAX package's sharded arms: batch_edt_sharded for the full
+branch, batch_edt_sharded_slab (y lanes only: the slab spans all of x) for
+the gate's slabs, and no phase-1 cache.  The gate runs under a mesh only
+where sharded_edt_ok holds, as in the JAX package.  The window, the sensor
+model and the block grids are replicated (on each process's home device).
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ from ..ops.scan_sensors import (CamParam, MulScanParam, ScanParam,
                                 hokuyo_update, realsense_update, vlp16_update)
 from ..ops.wave import (invalidate_disappeared, mark_frontiers,
                         reconcile_window, relax_fixed_point)
+from ..parallel.mesh import (Sharded, all_reduce, block_reduce, crop,
+                             parts_of, sbuild, smap, splice)
 from ..utils import constants as _c
 from ..utils import geometry as geo
 from ..utils.config import MapConfig
@@ -148,6 +156,65 @@ def _clip(v, lo, hi):
     return min(max(v, lo), hi)
 
 
+def _in_box(t, box):
+    """t[box], part by part; on a Sharded field the box spans all of x (the
+    sharded axis)."""
+    if not isinstance(t, Sharded):
+        return t[box]
+    if (box[0].start, box[0].stop) != (0, t.extent):
+        raise ValueError("a box over an x-sharded field must span all of x")
+    return smap(lambda q: q[(slice(None),) + tuple(box[1:])], t)
+
+
+def _with_box(t, box, v):
+    """A copy of t with t[box] = v (v laid out as _in_box gives it)."""
+    rest = (slice(None),) + tuple(box[1:]) if isinstance(t, Sharded) else box
+
+    def put(q, w):
+        q = q.clone()
+        q[rest] = w
+        return q
+
+    return smap(put, t, v)
+
+
+def _expanded(like_t, blk):
+    """The voxel mask of block grid `blk`, placed as `like_t` (of the
+    mask's extent): each part takes its own x-range."""
+    vox = _expand_blocks(blk)
+    return sbuild(like_t, lambda lo, hi, d: vox[lo:hi].to(d))
+
+
+def _window_mask(like_t, wb):
+    """bool canvas, True in the window box wb, placed as like_t."""
+    z = sbuild(like_t, lambda lo, hi, d: torch.zeros(
+        (hi - lo,) + tuple(like_t.shape[1:3]), dtype=torch.bool, device=d))
+    ones = torch.ones(tuple(s.stop - s.start for s in wb), dtype=torch.bool,
+                      device=parts_of(z)[0].device)
+    return splice(z, wb, ones, inplace=True)
+
+
+def _window_blocks(m, off, cb):
+    """Block-any of a window mask m (at canvas offset off) as a [bx, by,
+    bz] grid (the window lies inside the canvas)."""
+    lo = [int(o) // VB_WIDTH for o in off]
+    hi = [-(-(int(o) + n) // VB_WIDTH) for o, n in zip(off, m.shape)]
+    q = torch.zeros(tuple((h - l) * VB_WIDTH for l, h in zip(lo, hi)),
+                    dtype=torch.bool, device=m.device)
+    q[_box([int(o) - l * VB_WIDTH for o, l in zip(off, lo)], m.shape)] = m
+    out = torch.zeros(cb, dtype=torch.bool, device=m.device)
+    out[tuple(slice(l, h) for l, h in zip(lo, hi))] = _block_any(q, VB_WIDTH)
+    return out
+
+
+def _finalize_parts(cfg, dist_state, coc_state, edt, obs, pres, win):
+    """_finalize over the parts of (possibly) sharded fields."""
+    return smap(lambda d, c, v, ed, ec, o, p, w: _finalize(
+        cfg, d, c, {"valid": v, "dist_sq": ed, "coc": ec}, o, p, w),
+        dist_state, coc_state, edt["valid"], edt["dist_sq"], edt["coc"], obs,
+        pres, win)
+
+
 def _finalize(cfg, dist_state_s, coc_state_s, edt, obs_s, pres_s, win_s):
     """keep_old (limited-observation memory) + take selects on a crop."""
     cs_arr = torch.tensor(cfg.canvas_size, dtype=torch.int32,
@@ -175,8 +242,11 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
     """Change-gated exact canvas EDT (see the JAX package's docstring for
     the affected-region argument).  Under a mesh the slabs span all of x
     (x is the sharded axis).  Returns (final_dist, final_coc, dist_win,
-    coc_win, changed_blk_dist, gate_level, slab_vox, dmax_new, p1c_new)."""
-    dev = canvas_type.device
+    coc_win, changed_blk_dist, gate_level, slab_vox, dmax_new, p1c_new).
+    Under a mesh canvas_type and the state's canvas fields are x-shards and
+    every canvas-sized result stays so."""
+    dev = state.present.device
+    sharded = isinstance(canvas_type, Sharded)
     cs = cfg.canvas_size
     local_size = cfg.local_size
     X, Y, Z = cs
@@ -244,14 +314,18 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
     x1 = torch.maximum(bx_hi * G + (G - 1), cx_hi + off[0])
     y0 = torch.minimum(by_lo * G, cy_lo + off[1])
     y1 = torch.maximum(by_hi * G + (G - 1), cy_hi + off[1])
-    any_new = (canvas_type == VOX_OCCUPIED).any()
-    any_old = (state.vox_type == VOX_OCCUPIED).any()
 
     # ---- one readback: every host-side branch choice of this frame --------
+    # (over a mesh one all-reduce: each shard adds whether it holds a site
+    # before and after, so every shard and process takes the same branch)
     t_sync = time.perf_counter()
-    vals = torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
-                        any_new.to(torch.int32), any_old.to(torch.int32),
-                        state.p1c_ok.to(torch.int32)]).tolist()
+    vec = [torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
+                        (a == VOX_OCCUPIED).any().to(dev, torch.int32),
+                        (b == VOX_OCCUPIED).any().to(dev, torch.int32),
+                        state.p1c_ok.to(torch.int32)])
+           for a, b in zip(parts_of(canvas_type), parts_of(state.vox_type))]
+    vals = (all_reduce(canvas_type.mesh, vec, "max") if sharded
+            else vec[0]).tolist()
     sync_ms = (time.perf_counter() - t_sync) * 1e3
     x0, x1, y0, y1, flo0, fhi0, any_new, any_old, p1c_ok = vals
     need_x = max(x1 - x0 // 8 * 8 + 1, 0)
@@ -289,56 +363,71 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
         ox = _clip(x0 // 8 * 8, 0, X - SX)
         oy = _clip(y0 // 8 * 8, 0, Y - SY)
         box = _box((ox, oy, 0), (SX, SY, Z))
-        pres_s = _expand_blocks(present_blk[ox // 8:ox // 8 + SX // 8,
-                                            oy // 8:oy // 8 + SY // 8, :])
-        if mesh is None:
-            slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY,
-                                  max_width=mw, p1_packed=p1)
-        else:
+        if sharded:
             slab = batch_edt_sharded_slab(canvas_type, oy, sy=SY,
                                           max_width=mw, mesh=mesh)
-        win_s = window_mask[box]
-        dist_state_s = state.dist_sq[box]
-        coc_state_s = state.coc[box]
-        obs_s = canvas_type[box] != VOX_UNKNOWN
-        fin_d, fin_c, _, _ = _finalize(cfg, dist_state_s, coc_state_s, slab,
-                                       obs_s, pres_s, win_s)
-        final_dist = state.dist_sq.clone()
-        final_dist[box] = fin_d
-        final_coc = state.coc.clone()
-        final_coc[box] = fin_c
+        else:
+            slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY,
+                                  max_width=mw, p1_packed=p1)
+        win_s = _in_box(window_mask, box)
+        dist_state_s = _in_box(state.dist_sq, box)
+        coc_state_s = _in_box(state.coc, box)
+        obs_s = smap(lambda t: t != VOX_UNKNOWN, _in_box(canvas_type, box))
+        pres_s = _expanded(win_s, present_blk[ox // 8:ox // 8 + SX // 8,
+                                              oy // 8:oy // 8 + SY // 8, :])
+        fin_d, fin_c, _, _ = _finalize_parts(cfg, dist_state_s, coc_state_s,
+                                             slab, obs_s, pres_s, win_s)
+        final_dist = _with_box(state.dist_sq, box, fin_d)
+        final_coc = _with_box(state.coc, box, fin_c)
         changed = torch.zeros(cfg.canvas_blocks, dtype=torch.bool, device=dev)
         changed[ox // 8:ox // 8 + SX // 8, oy // 8:oy // 8 + SY // 8] = \
-            _block_any(fin_d != dist_state_s, 8)
-        dm_s = torch.where(obs_s, fin_d, -1).reshape(
-            SX // 4, 4, SY // 4, 4, Z // 4, 4).amax(dim=(1, 3, 5))
+            block_reduce(smap(torch.ne, fin_d, dist_state_s), 8, "any", False)
+        dm_s = block_reduce(smap(lambda o, f: torch.where(o, f, -1), obs_s,
+                                 fin_d), 4, "max", -1)
         dmax_new = state.dmax_cell.clone()
         dmax_new[ox // 4:ox // 4 + SX // 4, oy // 4:oy // 4 + SY // 4] = dm_s
         wb = _box(off, local_size)
-        dist_win, coc_win = final_dist[wb], final_coc[wb]
+        dist_win, coc_win = crop(final_dist, wb), crop(final_coc, wb)
         slab_vox = SX * SY * Z
     else:
         zero_site = sel == n_menu + 1
         if zero_site:
-            full = {"valid": torch.zeros(cs, dtype=torch.bool, device=dev),
-                    "dist_sq": torch.zeros(cs, dtype=torch.int32, device=dev),
-                    "coc": torch.zeros(cs + (3,), dtype=torch.int32, device=dev)}
-        elif mesh is None:
-            full = batch_edt(canvas_type, mw, p1_packed=p1)
-        else:
+            zeros = lambda dt, tail=(): sbuild(canvas_type, lambda lo, hi, d:
+                torch.zeros((hi - lo,) + cs[1:] + tail, dtype=dt, device=d))
+            full = {"valid": zeros(torch.bool), "dist_sq": zeros(torch.int32),
+                    "coc": zeros(torch.int32, (3,))}
+        elif sharded:
             full = batch_edt_sharded(canvas_type, mw, mesh)
-        obs = canvas_type != VOX_UNKNOWN
-        final_dist, final_coc, dist_pre, coc_pre = _finalize(
+        else:
+            full = batch_edt(canvas_type, mw, p1_packed=p1)
+        obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
+        final_dist, final_coc, dist_pre, coc_pre = _finalize_parts(
             cfg, state.dist_sq, state.coc, full, obs,
-            _expand_blocks(present_blk), window_mask)
-        changed = _block_any(final_dist != state.dist_sq, 8)
-        dmax_new = torch.where(obs, final_dist, -1).reshape(
-            X // 4, 4, Y // 4, 4, Z // 4, 4).amax(dim=(1, 3, 5))
+            _expanded(canvas_type, present_blk), window_mask)
+        changed = block_reduce(smap(torch.ne, final_dist, state.dist_sq), 8,
+                               "any", False)
+        dmax_new = block_reduce(smap(lambda o, f: torch.where(o, f, -1), obs,
+                                     final_dist), 4, "max", -1)
         wb = _box(off, local_size)
-        dist_win, coc_win = dist_pre[wb], coc_pre[wb]
+        dist_win, coc_win = crop(dist_pre, wb), crop(coc_pre, wb)
         slab_vox = 0 if zero_site else X * Y * Z
     return (final_dist, final_coc, dist_win, coc_win, changed, sel, slab_vox,
             dmax_new, p1c_new, sync_ms)
+
+
+def _canvas_edt(canvas_type, max_width, mesh):
+    """The full canvas EDT of the ungated branch: the sharded chain over
+    x-shards where sharded_edt_ok holds, else batch_edt (a whole canvas; an
+    x-sharded canvas whose z does not divide the mesh is gathered for it and
+    its outputs split again, the one frame-time gather of the canvas)."""
+    if not isinstance(canvas_type, Sharded):
+        return batch_edt(canvas_type, max_width)
+    if sharded_edt_ok(canvas_type.shape, canvas_type.mesh):
+        return batch_edt_sharded(canvas_type, max_width)
+    from ..parallel.mesh import canvas_sharding, gather, put
+
+    full = batch_edt(gather(canvas_type), max_width)
+    return {k: put(v, canvas_sharding(canvas_type.mesh)) for k, v in full.items()}
 
 
 def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
@@ -354,14 +443,18 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     voxels (host ints) or None.  Returns (state', outputs dict).  With
     emit_outputs=False the outputs are only changed_blk and the scalars of
     SCALAR_OUTPUTS: the window tensors (edt, glb_type, dist_sq, coc,
-    ogm_changed) are not built, and the state is the same.  mesh: a
-    parallel.mesh.Mesh whose home holds the state; the canvas EDT runs
-    sharded over it (module docstring)."""
+    ogm_changed) are not built, and the state is the same.  mesh: the
+    parallel.mesh.Mesh the state is placed on (shard_state); every stage
+    runs on the shards (module docstring)."""
     local_size = cfg.local_size
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
     bx, by, bz = cb
-    dev = state.vox_type.device
+    dev = state.present.device
+    if mesh is not None and cs[0] % mesh.size == 0 \
+            and not isinstance(state.vox_type, Sharded):
+        raise ValueError("merge_frame: the state is not placed on the mesh "
+                         "(parallel.mesh.shard_state)")
     off = [int(v) for v in win_off]
     wb = _box(off, local_size)
 
@@ -390,8 +483,8 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     # ---- occupancy fusion ---------------------------------------------------
     loc_grid = geo.local_coord_grid(local_size, device=dev)
     pvt_t = torch.tensor(np.asarray(pvt, np.int32), device=dev)
-    old_occ_win = state.occ_val[wb]
-    old_type_win = state.vox_type[wb]
+    old_occ_win = crop(state.occ_val, wb)
+    old_type_win = crop(state.vox_type, wb)
     if use_fence:
         glb_pos = geo.coord2pos(loc_grid + pvt_t, cfg.voxel_width)
         occ_flag = _fence_mask(glb_pos, *fence)
@@ -420,13 +513,9 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
                                old_type_win)
     glb_type = torch.where(present_vox_win, new_type_win,
                            VOX_UNKNOWN).to(torch.int8)
-    canvas_occ = state.occ_val.clone()
-    canvas_occ[wb] = new_occ_win
-    canvas_type = state.vox_type.clone()
-    canvas_type[wb] = new_type_win
-
-    window_mask = torch.zeros(cs, dtype=torch.bool, device=dev)
-    window_mask[wb] = True
+    canvas_occ = splice(state.occ_val, wb, new_occ_win)
+    canvas_type = splice(state.vox_type, wb, new_type_win)
+    window_mask = _window_mask(state.vox_type, wb)
 
     gated = gate_enabled(cfg, mesh)
     relax_iters = 0
@@ -438,26 +527,24 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
             present, es, cfg, mesh)
     elif cfg.merge_mode == "canvas_edt":
         # one exact EDT over the whole canvas, then the same keep-old / take
-        full = (batch_edt_sharded(canvas_type, sum(cs), mesh)
-                if sharded_edt_ok(cs, mesh)
-                else batch_edt(canvas_type, sum(cs)))
-        obs = canvas_type != VOX_UNKNOWN
-        final_dist, final_coc, dist, coc = _finalize(
-            cfg, state.dist_sq, state.coc, full, obs, _expand_blocks(present),
-            window_mask)
-        dist_win, coc_win = dist[wb], coc[wb]
+        full = _canvas_edt(canvas_type, sum(cs), mesh)
+        obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
+        final_dist, final_coc, dist, coc = _finalize_parts(
+            cfg, state.dist_sq, state.coc, full, obs,
+            _expanded(canvas_type, present), window_mask)
+        dist_win, coc_win = crop(dist, wb), crop(coc, wb)
     else:
         # the relax engine: the window's batch EDT reconciled with the
         # stored canvas, the raise wave (fast_mode off), then the lower
         # fixed point over the canvas
-        outside_observed = (canvas_type != VOX_UNKNOWN) & ~window_mask
+        outside_observed = smap(lambda t, w: (t != VOX_UNKNOWN) & ~w,
+                                canvas_type, window_mask)
         batch = batch_edt(glb_type, cfg.max_width)
         seed_dist, seed_coc = reconcile_window(
-            batch, state.dist_sq[wb], state.coc[wb], glb_type, off, local_size)
-        dist = state.dist_sq.clone()
-        dist[wb] = seed_dist
-        coc = state.coc.clone()
-        coc[wb] = seed_coc
+            batch, crop(state.dist_sq, wb), crop(state.coc, wb), glb_type, off,
+            local_size)
+        dist = splice(state.dist_sq, wb, seed_dist)
+        coc = splice(state.coc, wb, seed_coc)
         raised = None
         if not cfg.fast_mode:
             dead_win = ((old_type_win == VOX_OCCUPIED)
@@ -465,13 +552,13 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
             dist, coc, raised = invalidate_disappeared(
                 dist, coc, outside_observed, state.coc, dead_win, off,
                 max_sweeps=cfg.relax_iters)
-        can_update = window_mask if cfg.fast_mode else (window_mask
-                                                        | outside_observed)
+        can_update = window_mask if cfg.fast_mode else smap(
+            torch.logical_or, window_mask, outside_observed)
         dist, coc, relax_iters = relax_fixed_point(
             dist, coc, can_update, outside_observed, window_mask,
             cutoff_sq=cfg.cutoff_grids_sq, max_iters=cfg.relax_iters)
         # copies: the write-back below splices into dist and coc in place
-        dist_win, coc_win = dist[wb].clone(), coc[wb].clone()
+        dist_win, coc_win = crop(dist, wb).clone(), crop(coc, wb).clone()
 
     # ---- frontiers -----------------------------------------------------------
     fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
@@ -480,31 +567,32 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     observed_win = glb_type != VOX_UNKNOWN
     writeback = observed_win & pair_valid
     vt_win = torch.where(fnt & writeback, VOX_FNT, new_type_win).to(torch.int8)
-    canvas_type[wb] = vt_win
+    canvas_type = splice(canvas_type, wb, vt_win, inplace=True)
     if cfg.merge_mode == "relax":
         # pair-invalid window voxels keep the OLD stored value, except where
         # the raise wave reached them (the reference's wave mutates the
         # stored map in place, so they stay raised)
-        old_dist_win, old_coc_win = state.dist_sq[wb], state.coc[wb]
+        old_dist_win, old_coc_win = crop(state.dist_sq, wb), crop(state.coc, wb)
         if raised is not None:
-            rw = raised[wb]
+            rw = crop(raised, wb)
             old_dist_win = torch.where(rw, EMPTY_VALUE, old_dist_win)
             old_coc_win = torch.where(rw[..., None], INV16, old_coc_win)
-        final_dist, final_coc = dist, coc
-        final_dist[wb] = torch.where(writeback, dist_win, old_dist_win)
-        final_coc[wb] = torch.where(writeback[..., None], coc_win, old_coc_win)
+        final_dist = splice(dist, wb, torch.where(writeback, dist_win,
+                                                  old_dist_win), inplace=True)
+        final_coc = splice(coc, wb, torch.where(writeback[..., None], coc_win,
+                                                old_coc_win), inplace=True)
 
     # ---- changed-block tracking --------------------------------------------
     occ_changed_win = new_occ_win != old_occ_win
     if gated:
-        win_changed = torch.zeros(cs, dtype=torch.bool, device=dev)
-        win_changed[wb] = (vt_win != old_type_win) | occ_changed_win
-        changed_blk = (changed_blk_d | _block_any(win_changed, VB_WIDTH)) & present
+        win_changed = _window_blocks((vt_win != old_type_win) | occ_changed_win,
+                                     off, cb)
+        changed_blk = (changed_blk_d | win_changed) & present
     else:
-        occ_canvas = torch.zeros(cs, dtype=torch.bool, device=dev)
-        occ_canvas[wb] = occ_changed_win
-        changed_vox = (final_dist != old_dist) | (canvas_type != old_type) | occ_canvas
-        changed_blk = _block_any(changed_vox, VB_WIDTH) & present
+        changed_vox = smap(lambda fd, od, ct, ot: (fd != od) | (ct != ot),
+                           final_dist, old_dist, canvas_type, old_type)
+        changed_blk = (block_reduce(changed_vox, VB_WIDTH, "any", False)
+                       | _window_blocks(occ_changed_win, off, cb)) & present
     if enter_shift is not None:
         entering = torch.zeros(cb, dtype=torch.bool, device=dev)
         for a in range(3):
@@ -690,7 +778,7 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
     n = len(poses)
     if compact_cols is None:
         compact_cols = [None] * n
-    dev = state.vox_type.device
+    dev = state.present.device
     prev = np.asarray(origin_blk, np.int64)
     changed_union = torch.zeros(cfg.canvas_blocks, dtype=torch.bool, device=dev)
     ys = {k: [] for k in SCALAR_OUTPUTS}

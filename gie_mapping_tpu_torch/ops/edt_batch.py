@@ -22,7 +22,8 @@ reshards (the distributed separable-transform layout):
   reshard 2           [Z/n, X, Y] -> all_to_all              [Z, X/n, Y]
   phase 3 (along z)   the generic envelope                   [Z, X/n, Y]
 
-then the x-shards' packed words gather to home.  Phase 3 runs the generic
+and the outputs stay x-shards [X/n, Y, Z], each on its shard's device (the
+canvas is stored so between frames; parallel/mesh.py).  Phase 3 runs the generic
 envelope on the resharded layout, as the JAX package's sharded path does,
 not envelope_mid; both are exact, so the outputs equal batch_edt's.
 
@@ -39,7 +40,7 @@ from ..utils.constants import EMPTY_VALUE, INVALID_COC
 from .kernels.envelope import (env_idx_bits, envelope, envelope_mid,
                                envelope_packed)
 from .kernels.phase1 import phase1_pack_bits, phase1_packed
-from ..parallel.mesh import all_to_all, gather_x, split_x
+from ..parallel.mesh import Sharded, all_to_all
 
 _BIG = 1 << 28  # "infinite" squared cost of a lane without a site
 
@@ -144,9 +145,13 @@ def sharded_edt_ok(shape, mesh) -> bool:
     return n > 1 and Z > 1 and X % n == 0 and Z % n == 0
 
 
-def _edt_sharded(vox_type, max_width, mesh, y0=0, sy=None):
+def _edt_sharded(vox_type: Sharded, max_width, y0=0, sy=None):
     """The sharded chain over the y lanes [y0, y0 + sy) (all of x and z).
-    Returns the canvas-layout outputs [X, sy, Z] on home."""
+    Returns the canvas-layout outputs as x-shards [X/n, sy, Z]."""
+    if not isinstance(vox_type, Sharded):
+        raise TypeError("the sharded EDT takes the canvas as x-shards "
+                        "(parallel.mesh.Sharded)")
+    mesh = vox_type.mesh
     X, Y, Z = vox_type.shape
     if not sharded_edt_ok(vox_type.shape, mesh):
         raise ValueError(f"the sharded EDT needs Z > 1 and X, Z divisible "
@@ -160,40 +165,51 @@ def _edt_sharded(vox_type, max_width, mesh, y0=0, sy=None):
     # phase 1 on each x-shard; the y-slab is cut before the first reshard,
     # so both reshards move sy / Y of the canvas
     f2 = all_to_all([_zyx(phase1_packed(t, max_width)[:, y0:y0 + sy])
-                     for t in split_x(vox_type, mesh)], 1, 0)  # [X, Z/n, sy]
+                     for t in vox_type.parts], 1, 0, mesh)     # [X, Z/n, sy]
     d2m, pay3 = [], []
     for f in f2:
         d, p = _phase3_inputs(*envelope_packed(f, yb), ib2)
         d2m.append(d.movedim(1, 0))                             # [Z/n, X, sy]
         pay3.append(p.movedim(1, 0))
-    d2m, pay3 = all_to_all(d2m, 1, 0), all_to_all(pay3, 1, 0)  # [Z, X/n, sy]
-    packed_c, pay3b = [], []
+    d2m = all_to_all(d2m, 1, 0, mesh)                           # [Z, X/n, sy]
+    pay3 = all_to_all(pay3, 1, 0, mesh)
+    outs = []
     for f, p in zip(d2m, pay3):
         pk3, pay3s = envelope(f, p)
         d3c = torch.clamp(pk3 >> ib3, max=(1 << (30 - zbits)) - 1)
         coc_z3 = pk3 & ((1 << ib3) - 1)
-        packed_c.append(((d3c << (zbits + 1)) | (coc_z3 << 1)
-                         | (pay3s & 1)).movedim(0, 2))          # [X/n, sy, Z]
-        pay3b.append(pay3s.movedim(0, 2))
-    packed_c, pay3b = gather_x(packed_c, mesh), gather_x(pay3b, mesh)
-    return _finish(packed_c >> (zbits + 1), pay3b >> 11,
-                   (pay3b >> 1) & ((1 << 10) - 1),
-                   (packed_c >> 1) & ((1 << zbits) - 1), (packed_c & 1) > 0)
+        packed_c = ((d3c << (zbits + 1)) | (coc_z3 << 1)
+                    | (pay3s & 1)).movedim(0, 2)                # [X/n, sy, Z]
+        pay3b = pay3s.movedim(0, 2)
+        outs.append(_finish(packed_c >> (zbits + 1), pay3b >> 11,
+                            (pay3b >> 1) & ((1 << 10) - 1),
+                            (packed_c >> 1) & ((1 << zbits) - 1),
+                            (packed_c & 1) > 0))
+    return {k: Sharded(mesh, [o[k] for o in outs], X) for k in outs[0]}
 
 
-def batch_edt_sharded(vox_type: torch.Tensor, max_width: int, mesh) -> dict:
+def batch_edt_sharded(vox_type: Sharded, max_width: int, mesh=None) -> dict:
     """batch_edt over a canvas sharded along x on a 1-D device mesh (the
     JAX package's batch_edt_sharded; see the module docstring).  vox_type
-    lies on home; the outputs [X, Y, Z] come back there, equal to
-    batch_edt's.  Requires sharded_edt_ok(vox_type.shape, mesh)."""
-    return _edt_sharded(vox_type, max_width, mesh)
+    is the canvas's x-shards (parallel.mesh.Sharded); the outputs come back
+    as x-shards [X/n, Y, Z], equal to batch_edt's.  Requires
+    sharded_edt_ok(vox_type.shape, mesh); `mesh`, if given, must be the
+    shards' own."""
+    _same_mesh(vox_type, mesh)
+    return _edt_sharded(vox_type, max_width)
 
 
-def batch_edt_sharded_slab(vox_type: torch.Tensor, y0: int, *, sy: int,
-                           max_width: int, mesh) -> dict:
+def batch_edt_sharded_slab(vox_type: Sharded, y0: int, *, sy: int,
+                           max_width: int, mesh=None) -> dict:
     """batch_edt_sharded restricted to the y-slab [y0:y0+sy] (all x, all
     z): x is the sharded axis and z a site axis, so only the y lanes are
     sliced.  y0 is a host int (the caller clamps it so the slab fits).
-    Returns {"dist_sq", "coc", "valid"} shaped [X, sy, Z] on home, equal to
+    Returns {"dist_sq", "coc", "valid"} as x-shards [X/n, sy, Z], equal to
     the same voxels of batch_edt."""
-    return _edt_sharded(vox_type, max_width, mesh, y0, sy)
+    _same_mesh(vox_type, mesh)
+    return _edt_sharded(vox_type, max_width, y0, sy)
+
+
+def _same_mesh(t, mesh):
+    if mesh is not None and isinstance(t, Sharded) and t.mesh != mesh:
+        raise ValueError("batch_edt_sharded: the shards lie on another mesh")

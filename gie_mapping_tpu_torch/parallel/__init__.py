@@ -1,2 +1,3 @@
-from .mesh import (MESH_AXIS, Mesh, all_to_all, gather_x, make_mesh,
-                   shard_global_map, shard_state, split_x)
+from .mesh import (MESH_AXIS, Mesh, Sharded, all_reduce, all_to_all,
+                   canvas_sharding, gather, make_mesh, pool_sharding,
+                   replicated, shard_global_map, shard_state)

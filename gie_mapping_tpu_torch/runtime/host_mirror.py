@@ -15,6 +15,7 @@ import numpy as np
 
 from ..map_state import (COC_INVALID16, _dense_to_blocks, _rows3,
                          np_unpack_voxels)
+from ..parallel.mesh import Sharded, gather, to_numpy
 from ..utils.config import MapConfig
 from ..utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_OCCUPIED
 
@@ -31,7 +32,10 @@ def _coc_to_global(coc_rel, anchor_vox):
 
 
 def _np(t) -> np.ndarray:
-    """A device tensor (or array) as a numpy array."""
+    """A device tensor (a sharded field gathered), or an array, as a numpy
+    array."""
+    if isinstance(t, Sharded):
+        return to_numpy(t)
     return t.cpu().numpy() if hasattr(t, "cpu") else np.asarray(t)
 
 
@@ -71,7 +75,8 @@ class HostMirror:
         fields = {}
         for name in MIRROR_FIELDS:
             # one batched gather of the changed blocks, then one copy
-            bv = _dense_to_blocks(getattr(state, name), self.cfg.canvas_blocks)
+            bv = _dense_to_blocks(gather(getattr(state, name)),
+                                  self.cfg.canvas_blocks)
             fields[name] = _np(bv[tuple(idx.T)])
         fields["coc"] = _coc_to_global(fields["coc"], origin[None, :] * 8)
         keys = idx + origin[None, :]

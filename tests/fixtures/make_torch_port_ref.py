@@ -95,9 +95,11 @@ the gate level and the window-output sha256, then the final state sha256.
 frames through process_pointcloud, then the 40-frame circle in one call
 with chunk 40): the 3 online frames' window-output sha256 and gate levels,
 then what the replay fixture holds for it (state, last outputs, payload8,
-counters, every run's per_frame).  The script asserts that the slice takes
-a y-slab level and the full level, and that the replay runs its 40 frames
-as one run with scrolls.
+counters, every run's per_frame).  `scroll_*`: the scroll path (as
+torch_port_cow_scroll_ref: the preset's defaults, streaming on, x, z and
+teleport scrolls), what that fixture holds for it.  The script asserts that
+the slice takes a y-slab level and the full level, that the replay runs its
+40 frames as one run with scrolls, and the scroll path's own properties.
 """
 from __future__ import annotations
 
@@ -133,7 +135,7 @@ def _state(mapper):
             for f in dataclasses.fields(mapper.state)}
 
 
-def run(path, overrides, world, poses, scroll):
+def run(path, overrides, world, poses, scroll, mesh=None):
     from gie_mapping_tpu.models.mapper import VolumetricMapper
     from gie_mapping_tpu.models.pipeline import _slab_menu
     from gie_mapping_tpu.utils import geometry as geo
@@ -145,7 +147,7 @@ def run(path, overrides, world, poses, scroll):
 
     cfg = cow_lady_config(**overrides)
     n_menu = len(_slab_menu(cfg.canvas_size))
-    mapper = VolumetricMapper(cfg)
+    mapper = VolumetricMapper(cfg, mesh=mesh)
     mapper.warmup(robot_pos=poses[0][0])
     keys = ["origin", "gate_level", "type_counts", "dist_sum",
             "changed_blocks", "out_sha"]
@@ -219,6 +221,8 @@ def run(path, overrides, world, poses, scroll):
         arrays["mirror_blocks"] = np.asarray(len(mapper.mirror))
         print("capacity:", mapper.capacity_report(), "mirror blocks:",
               len(mapper.mirror))
+    if path is None:
+        return arrays
     np.savez_compressed(path, **arrays)
     print("written:", path, os.path.getsize(path), "bytes")
 
@@ -562,6 +566,13 @@ def run_mesh(path):
     assert mapper.replay_scanned_frames == len(projs) - n_online == chunk
     assert mapper.replay_scanned_scrolls > 0
     assert mapper.capacity_report()["arch_dropped"] == 0
+
+    # the scroll path (as torch_port_cow_scroll_ref: streaming on; x, z and
+    # teleport scrolls) over the mesh
+    from gie_mapping_tpu_torch.runtime.datasets import cow_lady_scroll
+
+    scroll = run(None, *cow_lady_scroll(), scroll=True, mesh=mesh)
+    arrays.update({f"scroll_{k}": v for k, v in scroll.items()})
     np.savez_compressed(path, **arrays)
     print("written:", path, os.path.getsize(path), "bytes",
           f"({time.time() - t0:.1f} s)")

@@ -200,7 +200,8 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         rt = pkg.__name__ + ".runtime."
-        want = [pkg.__name__ + ".cli", pkg.__name__ + ".parallel.mesh"] + [
+        want = [pkg.__name__ + ".cli", pkg.__name__ + ".parallel.mesh",
+                pkg.__name__ + ".parallel.multihost_demo"] + [
             rt + m for m in (
             "native", "rings", "clustering", "gt_checker", "logger",
             "profiler", "lz4f", "rosbag", "rosbag_writer", "sync", "viz",

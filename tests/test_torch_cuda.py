@@ -607,33 +607,39 @@ def test_sensor_replay_on_gpu_matches_cpu(dev, kind):
 def test_sharded_edt_on_gpu_matches_plain(dev, n):
     """batch_edt_sharded and a y-slab of it over n shards of one card (the
     kernels at the shard shapes) against the plain single-device chain."""
-    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+    from gie_mapping_tpu_torch.parallel.mesh import (canvas_sharding, gather,
+                                                     make_mesh, put)
 
     shape = (152, 152, 80)
     t = _types(shape, 0.03, 5)
     mesh = make_mesh(devices=[dev] * n)
     ref = eb.batch_edt(t, sum(shape))
-    got = eb.batch_edt_sharded(t.to(dev), sum(shape), mesh)
+    xs = put(t.to(dev), canvas_sharding(mesh))
+    got = eb.batch_edt_sharded(xs, sum(shape), mesh)
     for k in ref:
-        assert torch.equal(got[k].cpu(), ref[k]), k
-    got = eb.batch_edt_sharded_slab(t.to(dev), 40, sy=48, max_width=sum(shape),
+        assert all(p.shape[0] == 152 // n for p in got[k].parts), k
+        assert torch.equal(gather(got[k]).cpu(), ref[k]), k
+    got = eb.batch_edt_sharded_slab(xs, 40, sy=48, max_width=sum(shape),
                                     mesh=mesh)
     for k in ref:
-        assert torch.equal(got[k].cpu(), ref[k][:, 40:88]), k
+        assert torch.equal(gather(got[k]).cpu(), ref[k][:, 40:88]), k
 
 
 def test_sharded_edt_on_distinct_cards(dev):
     """The sharded EDT over the first two cards (each shard launched on its
     own card, reshards peer to peer)."""
-    from gie_mapping_tpu_torch.parallel.mesh import make_mesh
+    from gie_mapping_tpu_torch.parallel.mesh import (canvas_sharding, gather,
+                                                     make_mesh, put)
 
     if torch.cuda.device_count() < 2:
         pytest.skip("needs two CUDA devices")
     t = _types((64, 48, 16), 0.03, 6)
     ref = eb.batch_edt(t, 128)
-    got = eb.batch_edt_sharded(t.to(dev), 128, make_mesh(2))
+    mesh = make_mesh(2)
+    got = eb.batch_edt_sharded(put(t, canvas_sharding(mesh)), 128, mesh)
     for k in ref:
-        assert torch.equal(got[k].cpu(), ref[k]), k
+        assert [p.device for p in got[k].parts] == list(mesh.devices), k
+        assert torch.equal(gather(got[k]).cpu(), ref[k]), k
 
 
 def test_replay_mesh_on_gpu_matches_cpu(dev):

@@ -59,6 +59,21 @@ def _mesh(n):
     return tmesh.make_mesh(devices=["cpu"] * n)
 
 
+def _xs(a, mesh):
+    """A whole canvas array as the mesh's x-shards."""
+    return tmesh.put(T(a), tmesh.canvas_sharding(mesh))
+
+
+def _whole(edt):
+    """The sharded EDT's x-shards gathered, checking each shard's shape."""
+    out = {}
+    for k, v in edt.items():
+        assert isinstance(v, tmesh.Sharded), k
+        assert all(p.shape[0] == v.extent // v.mesh.size for p in v.parts), k
+        out[k] = tmesh.gather(v)
+    return out
+
+
 def _np(v):
     return np.asarray(v.cpu() if isinstance(v, torch.Tensor) else v)
 
@@ -105,14 +120,14 @@ def test_sharded_edt_matches_jax_and_one_device(n):
     types = _types((X, Y, Z), 2)
     jm, tm = jmesh.make_mesh(n), _mesh(n)
     one = teb.batch_edt(T(types), mw)
-    got = teb.batch_edt_sharded(T(types), mw, tm)
+    got = _whole(teb.batch_edt_sharded(_xs(types, tm), mw, tm))
     want = jeb.batch_edt_sharded(jnp.asarray(types), max_width=mw, mesh=jm)
     for k in ("dist_sq", "coc", "valid"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), k)
         assert torch.equal(got[k], one[k]), k
     for y0, sy in SLABS:
-        got = teb.batch_edt_sharded_slab(T(types), y0, sy=sy, max_width=mw,
-                                         mesh=tm)
+        got = _whole(teb.batch_edt_sharded_slab(_xs(types, tm), y0, sy=sy,
+                                                max_width=mw, mesh=tm))
         want = jeb.batch_edt_sharded_slab(jnp.asarray(types), jnp.int32(y0),
                                           sy=sy, max_width=mw, mesh=jm)
         for k in ("dist_sq", "coc", "valid"):
@@ -130,7 +145,9 @@ def test_sharded_edt_ok_matches_jax():
                 jeb.sharded_edt_ok(shape, jmesh.make_mesh(n)), (n, shape)
     assert not teb.sharded_edt_ok((64, 48, 16), None)
     with pytest.raises(ValueError, match="divisible"):
-        teb.batch_edt_sharded(T(_types((60, 8, 16), 0)), 84, _mesh(8))
+        teb.batch_edt_sharded(_xs(_types((64, 8, 12), 0), _mesh(8)), 84)
+    with pytest.raises(TypeError, match="x-shards"):
+        teb.batch_edt_sharded(T(_types((64, 8, 16), 0)), 88, _mesh(8))
 
 
 @contextmanager
@@ -152,7 +169,7 @@ def test_sharded_edt_launches_on_each_shard(monkeypatch):
     n = 4
     mesh = tmesh.Mesh(tuple(torch.device("cpu") for _ in range(n)))
     with _recorded_launches(monkeypatch) as calls:
-        teb.batch_edt_sharded(T(_types((32, 16, 8), 1)), 56, mesh)
+        teb.batch_edt_sharded(_xs(_types((32, 16, 8), 1), mesh), 56, mesh)
     assert [c[0] for c in calls] == ["phase1_packed"] * n + \
         ["envelope_packed"] * n + ["envelope"] * n
     assert [c[1] for c in calls] == list(mesh.devices) * 3
@@ -425,7 +442,8 @@ def test_construction(monkeypatch):
     m = tpkg.create_mapper("scan2D", mesh=mesh, local_size_m=(3.2, 3.2, 1.6),
                            voxel_width=0.2, max_blocks=512)
     assert m.mesh is mesh and m.device == torch.device("cpu")
-    assert all(getattr(m.state, f).device == torch.device("cpu") for f in FIELDS)
+    assert all(p.device == torch.device("cpu") for f in FIELDS
+               for p in tmesh.parts_of(getattr(m.state, f)))
 
 
 def test_cli_mesh_counts_match_one_device(monkeypatch, capsys):
