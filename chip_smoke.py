@@ -90,7 +90,9 @@ Phases, one JSON line each; any failure exits non-zero:
                 JAX per-frame run (state, last outputs), and the two runs
                 must be equal exactly where JAX's are (the per-frame
                 program rounds the sensor's height offset unlike the
-                replay's scan program); the final canvas EDT must equal
+                replay's scan loop), and the replay's state must equal
+                JAX's replay (`replay_equals_jax_replay`); the final
+                canvas EDT must equal
                 scipy's; the path must scroll, and phases 1-3 and the five
                 scroll kernels must launch.  Prints online and replay ms
                 per frame (the replay timed again over a second pass).
@@ -154,7 +156,29 @@ Phases, one JSON line each; any failure exits non-zero:
                 With one card a world of one process drives two shards on
                 it (every collective still runs through NCCL) and a line
                 says the two-card run waits for a machine with two.
- 15. profile  - only with --profile: torch.profiler over a second run of
+ 15. scenarios - the JAX package's scenario tests that carry state through
+                frames (tests/test_torch_scenario_cases.py's CHIP, their
+                test sizes): world extent out to +40,000 voxels and back
+                and the streamed mirror there, a true 2-D map on both
+                engines, an empty frame, fence box 0 inactive, archive
+                exhaustion warned and strict, a stream stall, the relax
+                sweep cap, fast-mode staleness on both engines, an archived
+                block stale until re-entry, the adversarial horizon on
+                both engines and the stream soak (gate on); then the
+                cow_lady preset at its own defaults (131,072 points,
+                streaming on) over 3 frames near the origin, 3 at x =
+                +40,000 voxels and 2 back.  Each against the JAX package's
+                records (tests/fixtures/torch_port_scenarios_ref.npz: every
+                frame's outputs, origins, capacity report, warning texts, a
+                strict mapper's error, state, mirror); the canvas EDT of
+                the extent, horizon, soak and far runs against scipy; the
+                far run's mirror must hold global cocs past 32,767; phases
+                1-3 and the five scroll kernels must launch in the small
+                scenarios, the generic envelope on the 2-D relax map, and
+                every kernel but the generic envelope in the far run.
+                Prints the far run's ms per frame beside the scroll path's
+                of the same call, with the nvidia-smi line.
+ 16. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -209,6 +233,9 @@ LOG: list = []
 REF_CLI = os.path.join(ROOT, "tests", "fixtures", "torch_port_cli_ref.npz")
 # the mesh phase (make_torch_port_ref.py --only mesh writes its fixture)
 REF_MESH = os.path.join(ROOT, "tests", "fixtures", "torch_port_mesh_ref.npz")
+# the scenarios phase (make_torch_port_ref.py --only scenarios writes it)
+REF_SCENARIOS = os.path.join(ROOT, "tests", "fixtures",
+                             "torch_port_scenarios_ref.npz")
 MESH_SIZES = (2, 4, 8)  # the sharded EDT's mesh sizes in the kernels phase
 MESH_PATH_SIZES = (2, 4)  # the mesh phase's slice runs over [card] * n
 MULTIPROC_FRAMES = 6  # the multiproc phase's frames of the slice
@@ -2745,14 +2772,16 @@ def phase_sensor(dev, wrappers, kind):
     # the port's own per-frame run of the same frames, on a fresh mapper
     lm, lo, _, frames, origins = run_sensor(dev, inputs, kind, False)
     # the per-frame program rounds the sensor's height offset unlike the
-    # replay's scan program (ROADMAP C): the frame loop is held against
-    # JAX's frame loop, and equal to the replay exactly where JAX's is
+    # replay's scan loop (pipeline._in_scan_loop): the frame loop is held
+    # against JAX's frame loop, the replay against JAX's replay, and the
+    # two equal exactly where JAX's are
     loop_sha = state_digest(state_to_numpy(lm.state))
     loop_ok = (loop_sha == str(ref["loop_state_sha"])
                and output_digest(lo.glb_type, lo.dist_sq, lo.coc)
                == str(ref["loop_out_sha"]))
     loop_is_replay = loop_sha == rec["state_sha"]
     jax_loop_is_replay = str(ref["loop_state_sha"]) == str(ref["batch_state_sha"])
+    replay_is_jax_replay = rec["state_sha"] == str(ref["batch_state_sha"])
     ms = [r["ms"] for r in frames]
     scrolls = sum(a != b for a, b in zip(origins, origins[1:]))
     emit({"phase": ph, "frames": len(poses), "online_frames": n_online,
@@ -2760,7 +2789,9 @@ def phase_sensor(dev, wrappers, kind):
           "window": list(cfg.local_size), "launches": got,
           "fixture_mismatch": bad, "online_frames_match": online_ok,
           "frame_loop_match": loop_ok, "loop_equals_replay": loop_is_replay,
-          "jax_loop_equals_replay": jax_loop_is_replay, "edt_mismatch": edt_bad,
+          "jax_loop_equals_replay": jax_loop_is_replay,
+          "replay_equals_jax_replay": replay_is_jax_replay,
+          "edt_mismatch": edt_bad,
           "kept_outside_canvas": kept, "scrolls": scrolls,
           "scanned_frames": rec["scanned_frames"],
           "scanned_scrolls": rec["scanned_scrolls"],
@@ -2779,6 +2810,7 @@ def phase_sensor(dev, wrappers, kind):
     require(loop_ok, ph, "the per-frame run differs from the JAX reference's")
     require(loop_is_replay == jax_loop_is_replay, ph,
             "the replay against the per-frame run differs from the JAX relation")
+    require(replay_is_jax_replay, ph, "the replay differs from JAX's replay")
     require(edt_bad == 0, ph, f"canvas dist_sq is wrong at {edt_bad} voxels")
     require(not cap_warn, ph, f"CapacityWarning fired: {cap_warn}")
     require(scrolls > 0 and rec["scanned_scrolls"] > 0, ph,
@@ -2788,6 +2820,116 @@ def phase_sensor(dev, wrappers, kind):
             f"a kernel of the path never launched: {got}")
     emit({"phase": ph, "ok": True, "launches": got})
     return got
+
+
+class _CudaClock:
+    """One frame's CUDA events, from an idle card: `ms` after the block."""
+
+    def __enter__(self):
+        import torch
+
+        torch.cuda.synchronize()
+        self.s = torch.cuda.Event(enable_timing=True)
+        self.e = torch.cuda.Event(enable_timing=True)
+        self.s.record()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+
+        self.e.record()
+        torch.cuda.synchronize()
+        self.ms = self.s.elapsed_time(self.e)
+
+
+def _scroll_ms_per_frame():
+    """The scroll path's mean ms per frame after the first, from this
+    call's emitted lines."""
+    ms = [r["ms"] for r in map(json.loads, LOG)
+          if r.get("phase") == "scroll" and "frame" in r and r["frame"] > 0]
+    return sum(ms) / len(ms) if ms else None
+
+
+def phase_scenarios(dev, wrappers, smi):
+    """The JAX package's scenario tests that carry state through frames
+    (tests/test_torch_scenario_cases.py's CHIP) at their test sizes, then
+    the cow_lady preset's far-pivot run at full width, each against
+    tests/fixtures/torch_port_scenarios_ref.npz; returns the launch counts
+    of both."""
+    import numpy as np
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_scenario_cases as sc
+
+    ph = "scenarios"
+    ref = np.load(REF_SCENARIOS)
+    api = sc.port_api(dev)
+
+    def mismatch(name, rec):
+        got = sc.digest(rec)
+        bad = [k for k, v in got.items()
+               if (ref[f"{name}/{k}"].tolist() != v if k == "frames"
+                   else str(ref[f"{name}/{k}"]) != v)]
+        return bad
+
+    total = {k: 0 for k in wrappers}
+    per = {}
+    t0 = time.perf_counter()
+    for name in sc.CHIP:
+        (cfg, m, rec), got = _counted(wrappers, lambda: sc.run_chip(api, name))
+        bad = mismatch(name, rec)
+        edt_bad = None
+        if name in ("extent_teleport", "horizon_canvas", "soak_gate"):
+            # the canvas engine's final EDT against scipy (the scroll
+            # phase's rules; fast_mode: the last window only)
+            edt_bad, _ = edt_mismatch(rec["state"], _window_slices(m, cfg)
+                                      if cfg.fast_mode else None)
+        per[name] = {k: v for k, v in got.items() if v}
+        total = {k: total[k] + got[k] for k in total}
+        emit({"phase": ph, "scenario": name, "frames": len(rec["frames"]),
+              "fixture_mismatch": bad, "scipy_mismatch": edt_bad,
+              "capacity": rec["capacity"], "warnings": rec["warnings"],
+              "raised": rec["raised"], "launches": per[name]})
+        require(not bad, ph, f"{name} differs from the JAX reference in {bad}")
+        require(not edt_bad, ph, f"{name}: canvas dist_sq differs from scipy "
+                f"at {edt_bad} voxels")
+    small_s = time.perf_counter() - t0
+    scan_need = ("phase1", "envelope_packed", "envelope_mid") + SCROLL_KERNELS
+    require(all(total[k] > 0 for k in scan_need), ph,
+            f"a kernel of the scan2D scenarios never launched: {total}")
+    require(per["true_2d_relax"].get("envelope", 0) > 0, ph,
+            "the generic envelope never launched on the 2-D relax map")
+
+    # the cow_lady preset at full width, far out and back
+    frames = sc.cow_far_frames()
+    (cfg, m, rec), far = _counted(
+        wrappers, lambda: sc.cow_far(api, frames, clock=_CudaClock))
+    bad = mismatch("cow_far", rec)
+    far_x = sc.mirror_max_global_x(m.mirror)
+    edt_bad, kept = edt_mismatch(rec["state"])
+    ms = rec["ms"][1:]
+    scroll_ms = _scroll_ms_per_frame()
+    emit({"phase": ph, "scenario": "cow_far", "frames": len(rec["frames"]),
+          "canvas": list(cfg.canvas_size), "points": int(len(frames[0][3])),
+          "origins": rec["origins"], "fixture_mismatch": bad,
+          "scipy_mismatch": edt_bad, "kept_outside_canvas": kept,
+          "capacity": rec["capacity"], "warnings": rec["warnings"],
+          "mirror_blocks": len(m.mirror), "mirror_max_global_x": far_x,
+          "launches": far, "ms_per_frame": float(np.mean(ms)),
+          "ms_frames": [round(v, 4) for v in rec["ms"]],
+          "scroll_path_ms_per_frame": scroll_ms, "nvidia_smi": smi,
+          "small_scenarios_s": round(small_s, 3)})
+    require(not bad, ph, f"cow_far differs from the JAX reference in {bad}")
+    require(far_x > 32767 and far_x == int(ref["cow_far/mirror_max_x"]), ph,
+            f"the mirror's largest global x coc is {far_x}")
+    require(edt_bad == 0, ph, f"cow_far: canvas dist_sq differs from scipy "
+            f"at {edt_bad} voxels")
+    require(not rec["warnings"], ph, f"cow_far warned: {rec['warnings']}")
+    require(all(v > 0 for k, v in far.items() if k != "envelope"), ph,
+            f"a kernel of the far-pivot run never launched: {far}")
+    emit({"phase": ph, "ok": True, "launches": {k: total[k] + far[k]
+                                                for k in total}})
+    return {k: total[k] + far[k] for k in total}
 
 
 def dda_inputs():
@@ -3258,7 +3400,8 @@ def main(argv=None) -> int:
                               phase_cli(dev, all_wrappers(), smi),
                               phase_mesh(dev, all_wrappers(), smi, frames, poses,
                                          parent),
-                              phase_multiproc(dev, smi)):
+                              phase_multiproc(dev, smi),
+                              phase_scenarios(dev, all_wrappers(), smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

@@ -698,7 +698,7 @@ def scan_sensor(ranges, rot, origin, s1, s2, pvt, *, cfg: MapConfig,
     """One frame's 2-D LiDAR model: ranges [n_beams] float32 on the device;
     rot / origin float32 (host numpy); the beam angles as the JAX package
     packs them in pose rows 7-8, s1 = (theta_min, theta_inc, ...), float32;
-    pvt host ints; `replay` rounds as the JAX replay's scan program does
+    pvt host ints; `replay` rounds as the JAX replay's scan loop does
     (scan_sensors._sensor_offsets).  Returns (inst_type, ray_count =
     zeros)."""
     dev = ranges.device
@@ -739,6 +739,16 @@ def multiscan_sensor(rings, rot, origin, s1, s2, pvt, *, cfg: MapConfig,
 # the projection sensors by the JAX package's sensor_kind
 SENSORS = {"scan": scan_sensor, "depth": depth_sensor,
            "multiscan": multiscan_sensor}
+
+
+def _in_scan_loop(k: int, n: int) -> bool:
+    """Whether frame k of an n-frame run rounds as the JAX replay's scan
+    loop.  The JAX program scans frames 0..n-2 with lax.scan and runs the
+    last frame unrolled after it.  XLA:CPU emits the scan body's sensor
+    offset (c * w - t) as a scalar loop, every component one FMA; a scan
+    of one frame has its while loop removed, and the unrolled frames round
+    as the per-frame program (scan_sensors._sensor_offsets)."""
+    return n >= 3 and k < n - 1
 
 
 def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
@@ -802,7 +812,7 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
             inst, cnt = SENSORS[sensor_kind](sensor_data[k], rot,
                                              sensor_origin, poses[k, 7],
                                              poses[k, 8], pvt, cfg=cfg,
-                                             replay=True)
+                                             replay=_in_scan_loop(k, n))
         state, out = merge_frame(
             state, inst, cnt, pvt, origin, off, fence, cfg=cfg,
             input_pointcloud=input_pointcloud, use_fence=use_fence,

@@ -102,11 +102,13 @@ def _window_coords(pvt, local_size, device=None):
 def _sensor_offsets(c, glb_z, vw, trans, replay):
     """World offsets (c * w - t) of the window voxels from the sensor,
     rounded as the JAX reference's sensor programs round them: fma(c, w, -t)
-    in x and y.  In z the per-frame program's vector loop computes the
-    voxel's height c_z * w once (`glb_z`, which its height test also reads)
-    and subtracts t_z from the rounded product; its scalar tail (the last
-    voxels mod 8, as in Projection.to_local) and the replay's scan program
-    (`replay`) fuse z as well."""
+    in x and y.  In z the per-frame program's vector loop subtracts t_z
+    from the rounded product c_z * w (`glb_z`): the vectoriser interleaves
+    the three components and the shuffle between z's multiply and its
+    subtract keeps them apart.  Its scalar tail (the last voxels mod 8, as
+    in Projection.to_local) fuses z as well, and so does the replay's scan
+    loop (`replay`), which XLA:CPU emits as a scalar loop
+    (pipeline._in_scan_loop)."""
     d = fma_f32(c, vw, -trans)
     if not replay:
         flat, z = d.view(-1, 3), glb_z.reshape(-1)
@@ -153,7 +155,7 @@ def hokuyo_update(proj: geo.Projection, param: ScanParam, pvt, *, local_size,
                   voxel_width, ogm_min_h, ogm_max_h, for_motion_planner: bool,
                   robot_r2_grids: int, replay: bool = False) -> torch.Tensor:
     """2-D LiDAR inverse model over the window at pivot `pvt` (host ints);
-    `replay` rounds as the JAX replay's scan program (_sensor_offsets).
+    `replay` rounds as the JAX replay's scan loop (_sensor_offsets).
     proj's rot and trans and param.ranges lie on the device the result
     takes.  Returns inst_type int8 [X, Y, Z]."""
     local_size = tuple(int(s) for s in local_size)

@@ -3,7 +3,8 @@ through the PyTorch port on a GPU (the machine with the GPU has no JAX, so
 these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
-        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli|mesh]
+        [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli|mesh|
+                scenarios]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -100,6 +101,25 @@ torch_port_cow_scroll_ref: the preset's defaults, streaming on, x, z and
 teleport scrolls), what that fixture holds for it.  The script asserts that
 the slice takes a y-slab level and the full level, that the replay runs its
 40 frames as one run with scrolls, and the scroll path's own properties.
+
+tests/fixtures/torch_port_scenarios_ref.npz, chip_smoke.py's scenarios
+phase: the JAX package's scenario tests that carry state through frames
+(tests/test_torch_scenario_cases.py's CHIP: world extent out and back at
++40,000 voxels, the streamed mirror there, a true 2-D map on both
+engines, an empty frame, fence box 0 inactive, archive exhaustion warned
+and strict, a stream stall, the relax sweep cap, fast-mode staleness on
+both engines, an archived block stale until re-entry, the adversarial
+horizon on both engines, the stream soak with the gate on) at their test
+sizes, each as test_torch_scenario_cases.digest gives it under
+`<name>/<key>` (every frame's output sha256, origins, capacity report,
+warning texts, a strict mapper's error text, state sha256, mirror
+digest); and `cow_far/...`, the cow_lady preset at its own defaults
+(131,072 points a frame, streaming on) over 3 frames near the origin, 3
+at x = +40,000 voxels and 2 back (cow_far_frames), with the mirror's
+largest global x coc.  It asserts the scenarios' own properties (the
+warnings fire where they must, nothing drops where nothing may, the far
+run archives and re-enters and its mirror holds global cocs past
+32,767).  About three minutes on the CPU.
 """
 from __future__ import annotations
 
@@ -123,6 +143,7 @@ OUT_LASER3D = os.path.join(HERE, "torch_port_laser3d_ref.npz")
 OUT_DDA = os.path.join(HERE, "torch_port_dda_ref.npz")
 OUT_CLI = os.path.join(HERE, "torch_port_cli_ref.npz")
 OUT_MESH = os.path.join(HERE, "torch_port_mesh_ref.npz")
+OUT_SCENARIOS = os.path.join(HERE, "torch_port_scenarios_ref.npz")
 MESH_DEVICES = 4  # the mesh phase's mesh (virtual CPU devices here)
 SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
@@ -751,11 +772,56 @@ def run_cli(path):
           f"({time.time() - t0:.1f} s)")
 
 
+def run_scenarios(path):
+    """The scenarios of chip_smoke.py's scenarios phase through the JAX
+    package; writes `path`."""
+    sys.path.insert(0, os.path.join(HERE, ".."))
+    import test_torch_scenario_cases as sc
+    from test_torch_scenario_jax import jax_api
+
+    t0 = time.time()
+    api = jax_api()
+    arrays = {}
+    for name in sc.CHIP:
+        _, m, rec = sc.run_chip(api, name)
+        for k, v in sc.digest(rec).items():
+            arrays[f"{name}/{k}"] = np.asarray(v)
+        cap, warned = rec["capacity"], [t for _, t in rec["warnings"]]
+        if name in ("archive_warn", "archive_strict"):
+            assert cap["arch_dropped"] > 0 or rec["raised"], name
+            assert (warned if name == "archive_warn" else [rec["raised"]]), name
+        elif name == "stream_stall":
+            assert cap["stream_stall_ticks"] >= 2 and warned, name
+        elif name == "relax_cap":
+            assert any("sweep cap" in t for t in warned), name
+        else:
+            assert not warned and rec["raised"] is None, (name, warned)
+            if cap is not None:
+                assert cap["arch_dropped"] == 0, name
+        print(f"{name}: {len(rec['frames'])} frames, capacity {cap} "
+              f"({time.time() - t0:.1f} s)", flush=True)
+    cfg, m, rec = sc.cow_far(api)
+    for k, v in sc.digest(rec).items():
+        arrays[f"cow_far/{k}"] = np.asarray(v)
+    far_x = sc.mirror_max_global_x(m.mirror)
+    arrays["cow_far/mirror_max_x"] = np.asarray(far_x)
+    arrays["cow_far/mirror_blocks"] = np.asarray(len(m.mirror))
+    assert far_x > 32767, far_x
+    assert rec["capacity"]["arch_dropped"] == 0 and rec["capacity"]["n_arch"] > 0
+    assert not rec["warnings"], rec["warnings"]
+    print(f"cow_far: origins {rec['origins']}, capacity {rec['capacity']}, "
+          f"mirror {len(m.mirror)} blocks, max global x coc {far_x} "
+          f"({time.time() - t0:.1f} s)", flush=True)
+    np.savez_compressed(path, **arrays)
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
                                        "replay", "depthcam", "laser3d",
-                                       "dda", "cli", "mesh"))
+                                       "dda", "cli", "mesh", "scenarios"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
@@ -788,6 +854,8 @@ def main():
         run_cli(OUT_CLI)
     if args.only in (None, "mesh"):
         run_mesh(OUT_MESH)
+    if args.only in (None, "scenarios"):
+        run_scenarios(OUT_SCENARIOS)
 
 
 if __name__ == "__main__":

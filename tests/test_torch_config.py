@@ -218,3 +218,23 @@ def test_port_never_imports_jax():
     r = subprocess.run([sys.executable, "-c", code], capture_output=True,
                        text=True, timeout=120, cwd=root)
     assert r.returncode == 0, r.stdout + r.stderr
+
+
+def test_chip_smoke_modules_never_import_jax():
+    """chip_smoke.py and the test modules it imports on the card (the
+    numpy-only case modules) import nothing of JAX."""
+    code = textwrap.dedent("""
+        import sys
+        sys.path.insert(0, "tests")
+        import chip_smoke
+        import test_torch_carve_cases, test_torch_envelope_cases
+        import test_torch_phase1_cases, test_torch_scenario_cases
+        bad = sorted(k for k in sys.modules
+                     if k in ("jax", "gie_mapping_tpu")
+                     or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.")))
+        assert not bad, bad
+    """)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    r = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                       text=True, timeout=120, cwd=root)
+    assert r.returncode == 0, r.stdout + r.stderr
