@@ -178,7 +178,20 @@ Phases, one JSON line each; any failure exits non-zero:
                 every kernel but the generic envelope in the far run.
                 Prints the far run's ms per frame beside the scroll path's
                 of the same call, with the nvidia-smi line.
- 16. profile  - only with --profile: torch.profiler over a second run of
+ 16. bench    - the port's harnesses (gie_mapping_tpu_torch/bench/) at
+                full size: the headline (bench.py's run; its state after
+                warm-up and the first batch call against the fixture's
+                bench run in tests/fixtures/torch_port_replay_ref.npz),
+                the suite's six cases (every stage cost measured and
+                positive, no clamp; 0 < p50 <= p95 <= worst, or p95 above
+                worst only within the two scroll chains' spread: the
+                suite's tail_order), the scaling
+                point on this card (and on every card where there are
+                more), and the 500-frame RMSE soak
+                (tests/test_torch_scenario_cases.py's soak_rmse) under the
+                JAX test's assertions.  Prints each harness's JSON line,
+                each step's wall time and launches.
+ 17. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -2932,6 +2945,108 @@ def phase_scenarios(dev, wrappers, smi):
     return {k: total[k] + far[k] for k in total}
 
 
+def phase_bench(dev, wrappers, smi):
+    """The port's harnesses (gie_mapping_tpu_torch/bench/) at full size,
+    each through its plain function as `python -m` runs it: the headline
+    (its state after warm-up and the first batch call against
+    tests/fixtures/torch_port_replay_ref.npz's bench run), the six suite
+    cases, the scaling point(s), and
+    the 500-frame RMSE soak under the JAX test's assertions.  Prints each
+    harness's JSON line, then a line with the step's wall time and
+    launches; returns the launch counts of all four.  A suite case fails
+    on a stage cost that is not positive or on a tail order that is
+    "inverted" (suite.tail_order: out of order beyond the scroll chains'
+    spread); p95 above worst within that spread is printed, not failed:
+    the two chains run the same host operations, and on a host-paced card
+    their costs can come out equal."""
+    import numpy as np
+
+    from gie_mapping_tpu_torch.bench import headline, scaling, suite
+
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    import test_torch_scenario_cases as sc
+
+    ph = "bench"
+    ref = np.load(REF_REPLAY)
+    total = dict.fromkeys(wrappers, 0)
+
+    def step(run):
+        (r, got), wall_s = timed_wall(lambda: _counted(wrappers, run))
+        for k, v in got.items():
+            total[k] += v
+        return r, got, wall_s
+
+    # -- the headline: bench.py's run, the fixture's own sequence -----------
+    runs, warm = [], {}
+
+    def after_warmup(m, out):
+        rec, _ = replay_end(m, out.fetch(), runs)
+        warm["bad"] = [k for k, v in rec.items()
+                       if not np.array_equal(np.asarray(v), ref[f"bench_{k}"])]
+
+    def run_headline():
+        with recorded_runs(runs):
+            return headline.run(dev, after_warmup=after_warmup)
+
+    line, got, wall_s = step(run_headline)
+    emit(line)
+    e = line["extra"]
+    emit({"phase": ph, "part": "headline", "wall_s": wall_s, "launches": got,
+          "fixture_mismatch": warm.get("bad")})
+    require(warm.get("bad") == [], ph, "the headline's state after warm-up "
+            f"differs from the JAX bench run in {warm.get('bad')}")
+    require(line["value"] > 0 and e["passes"] == headline.N_PASSES
+            and e["device"] == smi, ph, f"bad headline line: {line}")
+    need = ("phase1", "envelope_packed", "envelope_mid", "panorama", "carve",
+            "shift_canvas")
+    require(all(got[k] > 0 for k in need), ph,
+            f"a kernel of the headline never launched: {got}")
+
+    # -- the suite's six cases, then its summary ------------------------------
+    lines = []
+    for case in suite.CASES:
+        line, got, wall_s = step(lambda: suite.bench_case(case, dev))
+        lines.append(line)
+        emit(line)
+        e = line["extra"]
+        emit({"phase": ph, "part": "suite", "case": case, "wall_s": wall_s,
+              "launches": got, "tail_order": e["tail_order"]})
+        stages = [e[k] for k in ("edt_ms", "steady_ms", "scroll_ms",
+                                 "teleport_ms")]
+        require(all(v > 0 for v in stages), ph, f"{case}: stage costs {stages}")
+        require(e["tail_order"] != "inverted", ph,
+                f"{case}: p50 {e['p50_ms']}, p95 {e['p95_ms']}, worst "
+                f"{e['worst_ms']} are out of order beyond the stages' spread")
+        need = ("phase1", "envelope_packed", "envelope_mid") + SCROLL_KERNELS
+        if e["sensor"] == "pointcloud":
+            need += ("panorama", "carve")
+        require(all(got[k] > 0 for k in need), ph,
+                f"{case}: a kernel of the case never launched: {got}")
+    emit(suite.summary(lines, smi))
+
+    # -- the scaling point(s): one card, every visible card where more --------
+    (line, _), got, wall_s = step(lambda: scaling.run(dev))
+    emit(line)
+    emit({"phase": ph, "part": "scaling", "wall_s": wall_s, "launches": got,
+          "cards": line["extra"]["devices"]})
+    require(line["extra"]["points_ms"]["1"] > 0, ph, f"bad scaling line: {line}")
+
+    # -- the 500-frame RMSE soak ---------------------------------------------
+    rec, got, wall_s = step(lambda: sc.soak_rmse(sc.port_api(dev)))
+    faults = sc.soak_rmse_faults(rec)
+    curve = rec["curve"]
+    emit({"phase": ph, "part": "soak", "frames": rec["frames"],
+          "checked": len(curve), "wall_s": wall_s, "launches": got,
+          "rmse_max_m": max(r["rmse_m"] for r in curve),
+          "max_err_max_m": max(r["max_err_m"] for r in curve),
+          "n_arch_last": curve[-1]["n_arch"], "capacity": rec["capacity"],
+          "faults": faults[:10]})
+    require(not faults, ph, f"the soak broke the JAX test's assertions: "
+            f"{faults[:5]}")
+    emit({"phase": ph, "ok": True, "launches": total})
+    return total
+
+
 def dda_inputs():
     """(config, poses, clouds) of the DDA path (datasets.dda_path)."""
     from gie_mapping_tpu_torch.runtime import datasets as ds
@@ -3401,7 +3516,8 @@ def main(argv=None) -> int:
                               phase_mesh(dev, all_wrappers(), smi, frames, poses,
                                          parent),
                               phase_multiproc(dev, smi),
-                              phase_scenarios(dev, all_wrappers(), smi)):
+                              phase_scenarios(dev, all_wrappers(), smi),
+                              phase_bench(dev, all_wrappers(), smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

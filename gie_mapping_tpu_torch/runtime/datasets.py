@@ -280,21 +280,22 @@ def cow_lady_scroll():
         n_back=10, teleport_x=25.0, n_after=0)
 
 
-def cow_lady_bench():
+def cow_lady_bench(n_frames=40, n_online=3, rays=COW_SLICE_RAYS):
     """(MapConfig overrides, world, poses, n_online, chunk) of the headline
-    benchmark's replay (bench.py): the cow_lady preset with 131072 points
+    benchmark's replay (bench.py): the cow_lady preset with `rays` points
     per frame, the sensor model in the frame program (fuse_raycast) and
-    streaming off; the slice's corridor world; a closed 40-pose circle of
-    radius 1.5 m at 1.2 m, its first 3 poses repeated in front.  The first
-    `n_online` frames go through process_pointcloud, the 40 after them
-    through one process_pointcloud_batch call with `chunk` = 40.  Frame i's
-    cloud is world.pointcloud(poses[i], n_rays=COW_SLICE_RAYS,
-    max_range=8.0, seed=i)."""
-    overrides = dict(max_raycast_points=COW_SLICE_RAYS, fuse_raycast=True,
+    streaming off; the slice's corridor world; a closed `n_frames`-pose
+    circle of radius 1.5 m at 1.2 m, its first `n_online` poses repeated in
+    front.  The first `n_online` frames go through process_pointcloud, the
+    `n_frames` after them through one process_pointcloud_batch call with
+    `chunk` = min(40, n_frames).  Frame i's cloud is
+    world.pointcloud(poses[i], n_rays=rays, max_range=8.0, seed=i)."""
+    overrides = dict(max_raycast_points=rays, fuse_raycast=True,
                      display_glb_edt=False, display_glb_ogm=False)
     world = BoxWorld.corridor(seed=11, n_pillars=8, extent=4.0, height=2.5)
-    loop = circular_trajectory(n_frames=40, radius=1.5, height=1.2, closed=True)
-    return overrides, world, loop[:3] + loop, 3, 40
+    loop = circular_trajectory(n_frames=n_frames, radius=1.5, height=1.2,
+                               closed=True)
+    return overrides, world, loop[:n_online] + loop, n_online, min(40, n_frames)
 
 
 # A Hokuyo UTM-30LX, from its data sheet: 1,081 beams over 270 degrees
@@ -341,14 +342,15 @@ SUITE_DEPTH = dict(rows=96, cols=128, fx=80.0, fy=80.0, max_range=6.0)
 SUITE_RAYS = 16384  # bench_suite.py's live points for point-cloud cases
 
 
-def suite_world_circle(local_size_m):
+def suite_world_circle(local_size_m, n_frames=SUITE_BASE_FRAMES):
     """bench_suite.py's case_world_poses at chunk 40: the corridor world
-    (seed 11, 8 pillars) scaled to the window, and a closed 40-pose circle
-    of radius 0.35 * extent at 0.4 * the window's height."""
+    (seed 11, 8 pillars) scaled to the window, and a closed `n_frames`-pose
+    circle (40 in bench_suite.py) of radius 0.35 * extent at 0.4 * the
+    window's height."""
     extent = min(local_size_m[0] * 0.45, 4.5)
     world = BoxWorld.corridor(seed=11, n_pillars=8, extent=extent,
                               height=max(local_size_m[2], 2.5))
-    loop = circular_trajectory(n_frames=SUITE_BASE_FRAMES,
+    loop = circular_trajectory(n_frames=n_frames,
                                radius=extent * 0.35,
                                height=local_size_m[2] * 0.4, closed=True)
     return world, loop

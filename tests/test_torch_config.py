@@ -202,6 +202,8 @@ def test_port_never_imports_jax():
         rt = pkg.__name__ + ".runtime."
         want = [pkg.__name__ + ".cli", pkg.__name__ + ".parallel.mesh",
                 pkg.__name__ + ".parallel.multihost_demo"] + [
+            pkg.__name__ + ".bench." + m
+            for m in ("common", "headline", "suite", "scaling")] + [
             rt + m for m in (
             "native", "rings", "clustering", "gt_checker", "logger",
             "profiler", "lz4f", "rosbag", "rosbag_writer", "sync", "viz",

@@ -34,11 +34,12 @@ from gie_mapping_tpu_torch.map_state import FIELDS, output_digest, state_digest
 from gie_mapping_tpu_torch.models import mapper as mm
 from gie_mapping_tpu_torch.models import pipeline as pp
 from gie_mapping_tpu_torch.runtime import datasets as ds
+from gie_mapping_tpu_torch.runtime.gt_checker import knn_errors
 from gie_mapping_tpu_torch.runtime.host_mirror import mirror_digest
 from gie_mapping_tpu_torch.utils import config as tcfg
 from gie_mapping_tpu_torch.utils import geometry as geo
-from gie_mapping_tpu_torch.utils.constants import (VOX_FREE, VOX_OCCUPIED,
-                                                   VOX_UNKNOWN)
+from gie_mapping_tpu_torch.utils.constants import (EMPTY_VALUE, VOX_FREE,
+                                                   VOX_OCCUPIED, VOX_UNKNOWN)
 
 EYE = np.eye(3, dtype=np.float32)
 # the per-frame outputs a record keeps (window arrays, then scalars)
@@ -745,3 +746,100 @@ def mirror_max_global_x(mirror) -> int:
             best = max(best, int(c[..., 0][valid].max()))
     return best
 
+
+
+# ---------------------------------------------------------------------------
+# the 500-frame RMSE soak (tests/test_soak_rmse.py), the port only
+# ---------------------------------------------------------------------------
+
+SOAK_VW = 0.2
+SOAK_FRAMES = 500
+
+
+def soak_rmse_worlds():
+    """The soak's corridor (seed 21) and its three mutations: pillar k
+    dropped and a box added, k = 1, 2, 3."""
+    base = ds.BoxWorld.corridor(seed=21, n_pillars=6, extent=3.0, height=1.4)
+    worlds = [base]
+    for k in range(1, 4):
+        w = dataclasses.replace(base, boxes=np.delete(base.boxes, k, axis=0))
+        nb = np.asarray([[[-0.8 + 0.5 * k, 0.9, 0.0],
+                          [-0.3 + 0.5 * k, 1.4, 1.2]]], np.float32)
+        worlds.append(dataclasses.replace(
+            w, boxes=np.concatenate([w.boxes, nb])))
+    return worlds
+
+
+def soak_rmse(api, n_frames=SOAK_FRAMES):
+    """test_soak_rmse.py's soak on the package behind `api`: the gated
+    canvas engine on a 4.8 x 4.8 x 1.2 m window of 0.2 m voxels; a random
+    walk (seed 33) with teleports out 25 m at frame 150 and back at 300,
+    the world mutated every 50 frames, a fence box appended at i % 120 ==
+    60 and the fence cleared back to box 0 at i % 120 == 0; after every
+    frame the published window EDT against the exact 1-NN
+    (gt_checker.knn_errors) over the believed-occupied set, canvas and
+    archive.  A CapacityWarning raises (the JAX test turns it into an
+    error).  Returns {"curve": a row per checked frame, "capacity":
+    capacity_report(), "frames": n_frames}."""
+    cfg = api.config.scan2d_config(
+        local_size_m=(4.8, 4.8, 1.2), voxel_width=SOAK_VW, cutoff_dist=2.4,
+        max_blocks=8192, fast_mode=False, for_motion_planner=False,
+        edt_gate_min_vox=0)
+    worlds = soak_rmse_worlds()
+    mapper = api.Mapper(cfg)
+    rng = np.random.default_rng(33)
+    pos = np.zeros(2)
+    tele = 0.0
+    curve = []
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", mm.CapacityWarning)
+        for i in range(n_frames):
+            if i == 150:
+                tele = 25.0
+            elif i == 300:
+                tele = 0.0
+            else:
+                pos = np.clip(pos + rng.uniform(-0.35, 0.35, 2), -2.2, 2.2)
+            world = worlds[(i // 50) % len(worlds)]
+            if tele:
+                world = world_moved(world, tele)
+            if i % 120 == 60:
+                c = np.asarray([pos[0] + tele + 0.9, pos[1], 0.4], np.float32)
+                mapper.ext_obs.append(c - 0.25, c + 0.25)
+            elif i % 120 == 0 and i:
+                mapper.ext_obs.n = 1
+            trans = np.asarray([pos[0] + tele, pos[1], 0.6], np.float32)
+            r, tmin, tinc = world.scan_2d(_proj(EYE, trans), n_beams=360)
+            out = mapper.process_scan2d(api.proj(EYE, trans), r, tmin, tinc)
+            d = out.dist_sq
+            v = (d < EMPTY_VALUE) & out.seen
+            occ = believed_occupied(mapper.state, cfg)
+            if len(occ) and v.any():
+                q = np.argwhere(v)
+                sub = slice(None, None, max(1, len(q) // 400))
+                vg = (q[sub] + out.pvt) * SOAK_VW
+                edt_m = np.sqrt(d[v][sub].astype(float)) * SOAK_VW
+                rmse, mx, _ = knn_errors(occ * SOAK_VW, vg, edt_m)
+                curve.append({
+                    "frame": i, "rmse_m": rmse, "max_err_m": mx,
+                    "n_arch": int(np_of(mapper.state.n_arch)),
+                    "arch_dropped": mapper.capacity_report()["arch_dropped"],
+                    "gate_level": int(np_of(out.device("gate_level")))})
+    return {"curve": curve, "capacity": mapper.capacity_report(),
+            "frames": n_frames}
+
+
+def soak_rmse_faults(rec) -> list:
+    """test_soak_rmse.py's assertions on a soak record: each one that
+    fails, as text (empty when the soak holds)."""
+    bad = [f"frame {r['frame']}: rmse {r['rmse_m']} > {SOAK_VW}"
+           for r in rec["curve"] if not r["rmse_m"] <= SOAK_VW]
+    bad += [f"frame {r['frame']}: max error {r['max_err_m']} > {SOAK_VW}"
+            for r in rec["curve"]
+            if not r["max_err_m"] <= SOAK_VW * (1.0 + 1e-6)]
+    if rec["capacity"]["arch_dropped"] != 0:
+        bad.append(f"arch_dropped {rec['capacity']['arch_dropped']}")
+    if not len(rec["curve"]) > rec["frames"] * 0.9:
+        bad.append(f"the oracle ran on {len(rec['curve'])} of "
+                   f"{rec['frames']} frames")
+    return bad
