@@ -191,7 +191,22 @@ Phases, one JSON line each; any failure exits non-zero:
                 (tests/test_torch_scenario_cases.py's soak_rmse) under the
                 JAX test's assertions.  Prints each harness's JSON line,
                 each step's wall time and launches.
- 17. profile  - only with --profile: torch.profiler over a second run of
+ 17. parts    - the last of the JAX package's examples/ on the port:
+                bench/parts.py (every group at cow_lady, the frame group at
+                scan2D, depthcam and laser3D; each stage's ms > 0, busy_ms
+                <= 1.05 ms, and the kernels it must launch), the
+                composition checks (the sensor stage then merge_full equal
+                one process_* frame on a copy of the frozen state, every
+                MapState field; the scroll steps compose to _do_scroll,
+                compact and full; the edt group's batch_edt equals the
+                plain chain), bench/teleport.py at depthcam (40 frames, 2
+                reps; every arm timed, the jump frames found),
+                bench/ab.py (gate and p1c at cow_lady, rung at depthcam,
+                engine; both arms timed, their state differences
+                printed) and runtime/synthetic_bag.py (10 frames converted
+                and replayed through the CLI).  Prints each line, each
+                step's wall time and launches.
+ 18. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -1712,20 +1727,9 @@ def edt_mismatch(st, window=None):
 def all_wrappers():
     """{name: wrapper} of every kernel of the port (each keeps a launch
     count)."""
-    from gie_mapping_tpu_torch.ops.kernels import blockrows as kb
-    from gie_mapping_tpu_torch.ops.kernels import carve as kc
-    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
-    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
-    from gie_mapping_tpu_torch.ops.kernels import shift as ks
+    from gie_mapping_tpu_torch.bench.parts import kernel_wrappers
 
-    return {"phase1": kp.phase1_packed, "envelope_packed": ke.envelope_packed,
-            "envelope_mid": ke.envelope_mid, "panorama": kc.panorama,
-            "carve": kc.carve,
-            "envelope": ke.envelope, "shift_canvas": ks.shift_canvas,
-            "gather_block_rows": kb.gather_block_rows,
-            "scatter_block_rows": kb.scatter_block_rows,
-            "gather_archive_rows": kb.gather_archive_rows,
-            "scatter_archive_rows": kb.scatter_archive_rows}
+    return kernel_wrappers()
 
 
 def phase_slice(dev):
@@ -3047,6 +3051,160 @@ def phase_bench(dev, wrappers, smi):
     return total
 
 
+# parts of a frame, the teleport bench, the A/Bs and the synthetic bag ------
+PARTS_FRAME_CASES = ("scan2D", "depthcam", "laser3D")
+# the kernels each stage must launch on the card (bench/parts.py's names)
+PARTS_EDT = ("phase1", "envelope_packed", "envelope_mid")
+PARTS_NEED = {
+    ("frame", "edt_only"): PARTS_EDT, ("merge", "edt_only"): PARTS_EDT,
+    ("edt", "batch_edt"): PARTS_EDT, ("edt", "phase1"): ("phase1",),
+    ("edt", "phase2"): ("envelope_packed",), ("edt", "phase3"): ("envelope_mid",),
+    ("frame", "scroll_step"): ("shift_canvas",),
+    ("frame", "scroll_teleport"): ("shift_canvas",),
+    ("scroll", "shift"): ("shift_canvas",), ("scroll", "compact"): ("shift_canvas",),
+    ("scroll", "full"): ("shift_canvas",),
+}
+
+
+@contextlib.contextmanager
+def plain_edt():
+    """batch_edt with its three kernels' plain versions (the plain chain)."""
+    from gie_mapping_tpu_torch.ops import edt_batch as eb
+    from gie_mapping_tpu_torch.ops.kernels import envelope as ke
+    from gie_mapping_tpu_torch.ops.kernels import phase1 as kp
+
+    saved = (eb.phase1_packed, eb.envelope_packed, eb.envelope_mid)
+    eb.phase1_packed, eb.envelope_packed, eb.envelope_mid = (
+        kp.phase1_packed_plain, ke.envelope_packed_plain, ke.envelope_mid_plain)
+    try:
+        yield
+    finally:
+        eb.phase1_packed, eb.envelope_packed, eb.envelope_mid = saved
+
+
+def phase_parts(dev, wrappers, smi):
+    """bench/parts.py, bench/teleport.py, bench/ab.py and
+    runtime/synthetic_bag.py through their plain functions: every parts
+    group at cow_lady and the frame group at scan2D, depthcam and laser3D
+    (each stage's ms > 0 and busy_ms <= 1.05 ms; the kernels each stage
+    must launch); the composition checks (the sensor stage then merge_full
+    equal one process_* frame on a copy of the frozen state, every field;
+    the scroll steps compose to _do_scroll, compact and full; the edt
+    group's batch_edt equals the plain chain); the teleport bench at
+    depthcam (40 frames, 2 reps; every arm timed, the jump frames found);
+    the gate and p1c A/Bs at cow_lady, rung at depthcam and engine (both
+    arms timed; the arms' state differences printed); the synthetic bag of
+    10 frames converted and replayed through the CLI.  Prints each line,
+    each step's wall time and launches; returns the launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch.bench import ab, parts, teleport
+    from gie_mapping_tpu_torch.ops.edt_batch import batch_edt
+    from gie_mapping_tpu_torch.runtime import synthetic_bag
+
+    ph = "parts"
+    total = dict.fromkeys(wrappers, 0)
+
+    def step(part, run):
+        (r, got), wall_s = timed_wall(lambda: _counted(wrappers, run))
+        for k, v in got.items():
+            total[k] += v
+        emit({"phase": ph, "part": part, "wall_s": wall_s, "launches": got})
+        return r
+
+    # -- the stages: every group at cow_lady, the frame group elsewhere -------
+    lines = step("parts_cow_lady", lambda: parts.run(dev, ("cow_lady",),
+                                                     emit=False))
+    lines += step("parts_frame", lambda: parts.run(dev, PARTS_FRAME_CASES,
+                                                   ("frame",), emit=False))
+    seen = set()
+    for line in lines:
+        emit(line)
+        g = line["group"]
+        require(line["device"] == smi, ph, f"{g}: device {line['device']}")
+        for name, rec in line["stages"].items():
+            seen.add((g, name))
+            require(rec["ms"] > 0 and rec["busy_ms"] is not None
+                    and rec["busy_ms"] <= 1.05 * rec["ms"], ph,
+                    f"{line['case']} {g}.{name}: ms {rec['ms']}, busy_ms "
+                    f"{rec['busy_ms']}")
+            need = PARTS_NEED.get((g, name), ())
+            if g == "sensor" and name == "sensor" and \
+                    line["sensor"] == "pointcloud":
+                need = ("panorama", "carve")
+            require(all(rec["launches"].get(k, 0) > 0 for k in need), ph,
+                    f"{line['case']} {g}.{name} launched {rec['launches']}, "
+                    f"not all of {need}")
+        if g == "scroll":
+            moved = set().union(*(r["launches"] for r in line["stages"].values()))
+            require(set(SCROLL_KERNELS) <= moved, ph,
+                    f"the scroll group launched only {sorted(moved)}")
+    require(set(PARTS_NEED) <= seen, ph,
+            f"stages not run: {sorted(set(PARTS_NEED) - seen)}")
+
+    # -- composition ----------------------------------------------------------
+    def compose():
+        bad = {}
+        for case in ("cow_lady",) + PARTS_FRAME_CASES:
+            fz = parts.freeze(case, dev)
+            inst, cnt = fz.sensor()
+            got, _ = fz.merge(fz.state, inst, cnt)
+            bad[case] = parts.state_mismatch(got, fz.mapper_frame(fz.state))
+        cfg, st = parts.scroll_state("cow_lady", dev)
+        origin = st.origin_blk.cpu().numpy()
+        for cols in (32, None):
+            bad[f"scroll_cols_{cols}"] = parts.scroll_composition(
+                st, cfg, origin, cols)
+        for name, shape, zlo, zhi, frac in parts.EDT_CASES:
+            g = parts.edt_canvas(shape, zlo, zhi, frac, dev)
+            got = batch_edt(g, sum(shape))
+            with plain_edt():
+                want = batch_edt(g, sum(shape))
+            bad[f"edt_{name}"] = [k for k in want
+                                  if not torch.equal(got[k], want[k])]
+        return bad
+
+    bad = step("compose", compose)
+    emit({"phase": ph, "part": "compose_mismatch", "mismatch": bad})
+    require(not any(bad.values()), ph, f"stages do not compose: {bad}")
+
+    # -- the teleport bench ---------------------------------------------------
+    line = step("teleport", lambda: teleport.run(dev, "depthcam", frames=40,
+                                                 reps=2))
+    emit(line)
+    require(len(line["best_ms"]) == 3 and all(
+        len(v) == 2 and min(v) > 0 for v in line["passes"].values()), ph,
+        f"teleport arms not all timed: {line['passes']}")
+    # at 40 frames the every-40 arm stays home; the every-10 arm jumps 4 times
+    want = {f"teleport_every_{p}": int(teleport.jump_frames(
+        (np.arange(40) // p) % 2 == 1).sum()) for p in teleport.PERIODS}
+    got = {n: o["jump_frames"] for n, o in line["online"].items()}
+    require(got == want and all(o["jump_frame_ms"] is not None
+                                for n, o in line["online"].items() if want[n]),
+            ph, f"teleport: jump frames {got}, want {want}: {line['online']}")
+
+    # -- the A/Bs --------------------------------------------------------------
+    for what, cases in (("gate", ("cow_lady",)), ("p1c", ("cow_lady",)),
+                        ("rung", ("depthcam",)), ("engine", ("cow_lady",))):
+        for line in step(f"ab_{what}", lambda w=what, c=cases: ab.run(
+                dev, w, c, reps=2, emit=False)):
+            emit(line)
+            require(len(line["best_ms"]) == 2 and all(
+                len(v) == 2 and min(v) > 0 for v in line["passes"].values()),
+                ph, f"ab {what}: arms not timed: {line['passes']}")
+
+    # -- the synthetic bag, converted and replayed -----------------------------
+    with tempfile.TemporaryDirectory() as d:
+        rc = step("synthetic_bag", lambda: synthetic_bag.main(
+            [os.path.join(d, "synth.bag"), "--frames", "10", "--run"]))
+    require(rc == 0, ph, f"synthetic_bag --run returned {rc}")
+    emit({"phase": ph, "ok": True, "launches": total})
+    return total
+
+
 def dda_inputs():
     """(config, poses, clouds) of the DDA path (datasets.dda_path)."""
     from gie_mapping_tpu_torch.runtime import datasets as ds
@@ -3517,7 +3675,8 @@ def main(argv=None) -> int:
                                          parent),
                               phase_multiproc(dev, smi),
                               phase_scenarios(dev, all_wrappers(), smi),
-                              phase_bench(dev, all_wrappers(), smi)):
+                              phase_bench(dev, all_wrappers(), smi),
+                              phase_parts(dev, all_wrappers(), smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}
         if args.profile:
             phase_profile(dev, frames, poses, args.out)

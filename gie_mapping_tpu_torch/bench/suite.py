@@ -101,6 +101,26 @@ def make_frames(case, cfg, world, poses):
     return (kind, *ds.ring_frames(world, poses))
 
 
+def case_calls(m, kind, data, sc, poses, chunk, warm=N_WARMUP):
+    """(batch(ps), one(i)) of mapper m on make_frames' (kind, data, sc) at
+    `poses`: batch runs the frames after the first `warm` at poses `ps`
+    through the kind's batch call (chunk frames a run), one(i) frame i
+    through its process_*."""
+    if kind == "pointcloud":
+        pts, val = m.stage_pointcloud_batch(data)
+        return (lambda ps: m.process_pointcloud_batch(
+                    ps, pts[warm:], val[warm:], chunk=chunk),
+                lambda i: m.process_pointcloud(poses[i], pts[i], val[i]))
+    dd = torch.from_numpy(data).to(m.device)
+    per_call, batch_call = {
+        "scan": (m.process_scan2d, m.process_scan2d_batch),
+        "depth": (m.process_depth, m.process_depth_batch),
+        "multiscan": (m.process_multiscan, m.process_multiscan_batch),
+    }[kind]
+    return (lambda ps: batch_call(ps, dd[warm:], *sc, chunk=chunk),
+            lambda i: per_call(poses[i], dd[i], *sc))
+
+
 def clone_state(state):
     return dataclasses.replace(state, **{
         f.name: getattr(state, f.name).clone()
@@ -172,28 +192,7 @@ def bench_case(case, device, *, frames=BASE_FRAMES, passes=N_PASSES,
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
     m = VolumetricMapper(cfg, device=dev)
-    if kind == "pointcloud":
-        pts, val = m.stage_pointcloud_batch(data)
-
-        def batch(ps):
-            return m.process_pointcloud_batch(ps, pts[N_WARMUP:],
-                                              val[N_WARMUP:], chunk=chunk)
-
-        def one(i):
-            return m.process_pointcloud(poses[i], pts[i], val[i])
-    else:
-        dd = torch.from_numpy(data).to(dev)
-        per_call, batch_call = {
-            "scan": (m.process_scan2d, m.process_scan2d_batch),
-            "depth": (m.process_depth, m.process_depth_batch),
-            "multiscan": (m.process_multiscan, m.process_multiscan_batch),
-        }[kind]
-
-        def batch(ps):
-            return batch_call(ps, dd[N_WARMUP:], *sc, chunk=chunk)
-
-        def one(i):
-            return per_call(poses[i], dd[i], *sc)
+    batch, one = case_calls(m, kind, data, sc, poses, chunk)
 
     timed_poses = poses[N_WARMUP:]
     loop_ids = range(N_WARMUP, len(poses))

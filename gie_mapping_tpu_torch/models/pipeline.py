@@ -236,6 +236,107 @@ def _finalize(cfg, dist_state_s, coc_state_s, edt, obs_s, pres_s, win_s):
     return fin_d, fin_c, dist_s, coc_s
 
 
+def _gate_readback(vec, mesh=None):
+    """The change gate's one readback of a frame: `vec`, each part's nine
+    int32 branch scalars (over a mesh max-reduced across the shards), as
+    host ints, and the host ms it took, waiting for the device to reach it
+    included."""
+    t0 = time.perf_counter()
+    vals = (all_reduce(mesh, vec, "max") if mesh is not None
+            else vec[0]).tolist()
+    return vals, (time.perf_counter() - t0) * 1e3
+
+
+def _alloc_blocks(present, observed, off, cfg: MapConfig):
+    """Block allocation (dense: flip present flags): every block that holds
+    an observed window voxel (observed bool [X, Y, Z] at canvas offset
+    `off`, host ints) becomes present.  Returns (present [bx, by, bz], the
+    window's mask of voxels in present blocks [X, Y, Z])."""
+    local_size = cfg.local_size
+    cb = cfg.canvas_blocks
+    bx, by, bz = cb
+    dev = present.device
+    lb = tuple(ls // VB_WIDTH + 2 for ls in local_size)
+    start_bk = [o // VB_WIDTH for o in off]
+    sub = [o - s * VB_WIDTH for o, s in zip(off, start_bk)]
+    cov = torch.zeros(tuple(b * VB_WIDTH for b in lb), dtype=torch.bool,
+                      device=dev)
+    cov[_box(sub, local_size)] = observed
+    nb = _block_any(cov, VB_WIDTH)
+    pad = tuple(b + 2 for b in cb)
+    st = [_clip(s, 0, p - l) for s, p, l in zip(start_bk, pad, lb)]
+    needed = torch.zeros(pad, dtype=torch.bool, device=dev)
+    needed[_box(st, lb)] = nb
+    present = present | needed[:bx, :by, :bz]
+    pres_pad = torch.zeros(pad, dtype=torch.bool, device=dev)
+    pres_pad[:bx, :by, :bz] = present
+    pres_cov = pres_pad[_box(st, lb)]
+    return present, _expand_blocks(pres_cov)[_box(sub, local_size)]
+
+
+def _fuse_window(state: MapState, inst_type, ray_count, pvt, fence,
+                 present_vox_win, wb, cfg: MapConfig, input_pointcloud: bool,
+                 use_fence: bool):
+    """Occupancy fusion over the window box wb: the hit / miss low-pass of
+    the occupancy values and the re-thresholded types, where the voxel's
+    block is present (present_vox_win).  Returns (old_occ_win,
+    old_type_win, new_occ_win, new_type_win, glb_type): the window's values
+    before and after, and the new types with absent blocks UNKNOWN."""
+    local_size = cfg.local_size
+    dev = present_vox_win.device
+    loc_grid = geo.local_coord_grid(local_size, device=dev)
+    pvt_t = torch.tensor(np.asarray(pvt, np.int32), device=dev)
+    old_occ_win = crop(state.occ_val, wb)
+    old_type_win = crop(state.vox_type, wb)
+    if use_fence:
+        glb_pos = geo.coord2pos(loc_grid + pvt_t, cfg.voxel_width)
+        occ_flag = _fence_mask(glb_pos, *fence)
+    else:
+        occ_flag = torch.zeros(local_size, dtype=torch.bool, device=dev)
+    if input_pointcloud:
+        hit = (ray_count > 0) | occ_flag
+        miss = (ray_count < 0) & ~hit
+        # / 10.0 in a jitted program: a multiply by float32(0.1)
+        pbty = torch.clamp(div_const((-ray_count).to(torch.float32), 10.0),
+                           max=1.0)
+        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
+                                 1.0, cfg.occupancy_threshold)
+        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
+                                 pbty, cfg.occupancy_threshold)
+    else:
+        hit = (inst_type == VOX_OCCUPIED) | occ_flag
+        miss = (inst_type == VOX_FREE) & ~hit
+        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
+                                 _c.LOWPASS_SENSOR_OCC, cfg.occupancy_threshold)
+        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
+                                 _c.LOWPASS_SENSOR_FREE, cfg.occupancy_threshold)
+    upd = present_vox_win & (hit | miss)
+    new_occ_win = torch.where(upd, torch.where(hit, occ_h, occ_m), old_occ_win)
+    new_type_win = torch.where(upd, torch.where(hit, type_h, type_m),
+                               old_type_win)
+    glb_type = torch.where(present_vox_win, new_type_win,
+                           VOX_UNKNOWN).to(torch.int8)
+    return old_occ_win, old_type_win, new_occ_win, new_type_win, glb_type
+
+
+def _changed_blocks(present, canvas_blk, win_vox, off, enter_shift, cb):
+    """The frame's changed_blk: the canvas's changed blocks (canvas_blk)
+    or-ed with the blocks of the window's changed voxels (win_vox at canvas
+    offset off), within the present blocks, and on a canvas move the
+    present blocks that entered (enter_shift in voxels, host ints, or
+    None)."""
+    changed_blk = (canvas_blk | _window_blocks(win_vox, off, cb)) & present
+    if enter_shift is not None:
+        entering = torch.zeros(cb, dtype=torch.bool, device=present.device)
+        for a in range(3):
+            s = int(enter_shift[a]) // VB_WIDTH
+            bi = torch.arange(cb[a], device=present.device).reshape(
+                [-1 if i == a else 1 for i in range(3)])
+            entering |= (bi >= cb[a] - s) if s > 0 else (bi < -s)
+        changed_blk = changed_blk | (entering & present)
+    return changed_blk
+
+
 def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
                         old_type_win, win_off, window_mask, present_blk,
                         enter_shift, cfg: MapConfig, mesh=None):
@@ -318,15 +419,12 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
     # ---- one readback: every host-side branch choice of this frame --------
     # (over a mesh one all-reduce: each shard adds whether it holds a site
     # before and after, so every shard and process takes the same branch)
-    t_sync = time.perf_counter()
     vec = [torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
                         (a == VOX_OCCUPIED).any().to(dev, torch.int32),
                         (b == VOX_OCCUPIED).any().to(dev, torch.int32),
                         state.p1c_ok.to(torch.int32)])
            for a, b in zip(parts_of(canvas_type), parts_of(state.vox_type))]
-    vals = (all_reduce(canvas_type.mesh, vec, "max") if sharded
-            else vec[0]).tolist()
-    sync_ms = (time.perf_counter() - t_sync) * 1e3
+    vals, sync_ms = _gate_readback(vec, canvas_type.mesh if sharded else None)
     x0, x1, y0, y1, flo0, fhi0, any_new, any_old, p1c_ok = vals
     need_x = max(x1 - x0 // 8 * 8 + 1, 0)
     need_y = max(y1 - y0 // 8 * 8 + 1, 0)
@@ -449,7 +547,6 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     local_size = cfg.local_size
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
-    bx, by, bz = cb
     dev = state.present.device
     if mesh is not None and cs[0] % mesh.size == 0 \
             and not isinstance(state.vox_type, Sharded):
@@ -462,57 +559,11 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     old_type = state.vox_type
     observed = (ray_count != 0) if input_pointcloud else (inst_type != VOX_UNKNOWN)
 
-    # ---- block allocation (dense: flip present flags) ---------------------
-    lb = tuple(ls // VB_WIDTH + 2 for ls in local_size)
-    start_bk = [o // VB_WIDTH for o in off]
-    sub = [o - s * VB_WIDTH for o, s in zip(off, start_bk)]
-    cov = torch.zeros(tuple(b * VB_WIDTH for b in lb), dtype=torch.bool,
-                      device=dev)
-    cov[_box(sub, local_size)] = observed
-    nb = _block_any(cov, VB_WIDTH)
-    pad = tuple(b + 2 for b in cb)
-    st = [_clip(s, 0, p - l) for s, p, l in zip(start_bk, pad, lb)]
-    needed = torch.zeros(pad, dtype=torch.bool, device=dev)
-    needed[_box(st, lb)] = nb
-    present = state.present | needed[:bx, :by, :bz]
-    pres_pad = torch.zeros(pad, dtype=torch.bool, device=dev)
-    pres_pad[:bx, :by, :bz] = present
-    pres_cov = pres_pad[_box(st, lb)]
-    present_vox_win = _expand_blocks(pres_cov)[_box(sub, local_size)]
-
-    # ---- occupancy fusion ---------------------------------------------------
-    loc_grid = geo.local_coord_grid(local_size, device=dev)
-    pvt_t = torch.tensor(np.asarray(pvt, np.int32), device=dev)
-    old_occ_win = crop(state.occ_val, wb)
-    old_type_win = crop(state.vox_type, wb)
-    if use_fence:
-        glb_pos = geo.coord2pos(loc_grid + pvt_t, cfg.voxel_width)
-        occ_flag = _fence_mask(glb_pos, *fence)
-    else:
-        occ_flag = torch.zeros(local_size, dtype=torch.bool, device=dev)
-    if input_pointcloud:
-        hit = (ray_count > 0) | occ_flag
-        miss = (ray_count < 0) & ~hit
-        # / 10.0 in a jitted program: a multiply by float32(0.1)
-        pbty = torch.clamp(div_const((-ray_count).to(torch.float32), 10.0),
-                           max=1.0)
-        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
-                                 1.0, cfg.occupancy_threshold)
-        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
-                                 pbty, cfg.occupancy_threshold)
-    else:
-        hit = (inst_type == VOX_OCCUPIED) | occ_flag
-        miss = (inst_type == VOX_FREE) & ~hit
-        occ_h, type_h = _lowpass(old_occ_win, old_type_win, _c.OCC_HIT_VAL,
-                                 _c.LOWPASS_SENSOR_OCC, cfg.occupancy_threshold)
-        occ_m, type_m = _lowpass(old_occ_win, old_type_win, _c.OCC_FREE_VAL,
-                                 _c.LOWPASS_SENSOR_FREE, cfg.occupancy_threshold)
-    upd = present_vox_win & (hit | miss)
-    new_occ_win = torch.where(upd, torch.where(hit, occ_h, occ_m), old_occ_win)
-    new_type_win = torch.where(upd, torch.where(hit, type_h, type_m),
-                               old_type_win)
-    glb_type = torch.where(present_vox_win, new_type_win,
-                           VOX_UNKNOWN).to(torch.int8)
+    # ---- block allocation, occupancy fusion --------------------------------
+    present, present_vox_win = _alloc_blocks(state.present, observed, off, cfg)
+    old_occ_win, old_type_win, new_occ_win, new_type_win, glb_type = \
+        _fuse_window(state, inst_type, ray_count, pvt, fence, present_vox_win,
+                     wb, cfg, input_pointcloud, use_fence)
     canvas_occ = splice(state.occ_val, wb, new_occ_win)
     canvas_type = splice(state.vox_type, wb, new_type_win)
     window_mask = _window_mask(state.vox_type, wb)
@@ -585,22 +636,15 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     # ---- changed-block tracking --------------------------------------------
     occ_changed_win = new_occ_win != old_occ_win
     if gated:
-        win_changed = _window_blocks((vt_win != old_type_win) | occ_changed_win,
-                                     off, cb)
-        changed_blk = (changed_blk_d | win_changed) & present
+        changed_blk = _changed_blocks(
+            present, changed_blk_d, (vt_win != old_type_win) | occ_changed_win,
+            off, enter_shift, cb)
     else:
         changed_vox = smap(lambda fd, od, ct, ot: (fd != od) | (ct != ot),
                            final_dist, old_dist, canvas_type, old_type)
-        changed_blk = (block_reduce(changed_vox, VB_WIDTH, "any", False)
-                       | _window_blocks(occ_changed_win, off, cb)) & present
-    if enter_shift is not None:
-        entering = torch.zeros(cb, dtype=torch.bool, device=dev)
-        for a in range(3):
-            s = int(enter_shift[a]) // VB_WIDTH
-            bi = torch.arange(cb[a], device=dev).reshape(
-                [-1 if i == a else 1 for i in range(3)])
-            entering |= (bi >= cb[a] - s) if s > 0 else (bi < -s)
-        changed_blk = changed_blk | (entering & present)
+        changed_blk = _changed_blocks(
+            present, block_reduce(changed_vox, VB_WIDTH, "any", False),
+            occ_changed_win, off, enter_shift, cb)
 
     state = dataclasses.replace(
         state, occ_val=canvas_occ, vox_type=canvas_type, dist_sq=final_dist,

@@ -93,8 +93,15 @@ def batch_edt(vox_type: torch.Tensor, max_width: int,
         return _batch_edt_2d(p1_packed, yb, ib2)
     pk2, pay2t = envelope_packed(_zyx(p1_packed), yb)            # [X, Z, Y]
     d2m, pay3 = _phase3_inputs(pk2, pay2t, ib2)
-    ib3 = env_idx_bits(Z)
     pk3, pay3s = envelope_mid(d2m, pay3)                        # [X, Z, Y]
+    return _phase3_outputs(pk3, pay3s)
+
+
+def _phase3_outputs(pk3, pay3s):
+    """batch_edt's result from phase 3's packed words and payloads
+    [X, Z, Y], transposed back to [X, Y, Z]."""
+    Z = pk3.shape[1]
+    ib3 = env_idx_bits(Z)
     d3 = pk3 >> ib3
     coc_z3 = pk3 & ((1 << ib3) - 1)
     zbits = (Z - 1).bit_length() + 1

@@ -203,16 +203,22 @@ def test_port_never_imports_jax():
         want = [pkg.__name__ + ".cli", pkg.__name__ + ".parallel.mesh",
                 pkg.__name__ + ".parallel.multihost_demo"] + [
             pkg.__name__ + ".bench." + m
-            for m in ("common", "headline", "suite", "scaling")] + [
+            for m in ("common", "headline", "suite", "scaling", "parts",
+                      "teleport", "ab")] + [
             rt + m for m in (
             "native", "rings", "clustering", "gt_checker", "logger",
             "profiler", "lz4f", "rosbag", "rosbag_writer", "sync", "viz",
-            "datasets", "host_mirror")]
+            "datasets", "host_mirror", "synthetic_bag")]
         missing = sorted(set(want) - set(names))
         assert not missing, missing
+        # neither JAX, nor the JAX package, nor its scripts (examples/ and
+        # the root harnesses)
         bad = sorted(k for k in sys.modules
-                     if k in ("jax", "gie_mapping_tpu")
-                     or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.")))
+                     if k in ("jax", "gie_mapping_tpu", "bench", "bench_suite",
+                              "bench_scaling", "run_case",
+                              "make_synthetic_bag")
+                     or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.",
+                                      "examples")))
         print(bad)
         assert not bad, bad
     """)

@@ -668,3 +668,52 @@ def test_replay_mesh_on_gpu_matches_cpu(dev):
     for k in ("edt", "dist_sq", "coc", "glb_type"):
         np.testing.assert_array_equal(getattr(ob, k), getattr(oa, k), err_msg=k)
     assert b.replay_scanned_scrolls > 0
+
+
+PARTS_SMALL = dict(voxel_width=0.2, local_size_m=(3.2, 3.2, 1.6),
+                   cutoff_dist=0.8, max_blocks=512, edt_gate_min_vox=0)
+
+
+@pytest.mark.parametrize("case", ["cow_lady", "scan2D", "depthcam", "laser3D"])
+def test_parts_frame_composition_on_gpu(dev, case):
+    """bench/parts.py on the card at a reduced window: the sensor stage's
+    call, then merge_full's, from the frozen state equals one process_*
+    frame of the mapper on a copy of that state, every field bit for bit,
+    and each frame stage's single call equals the CPU's."""
+    from gie_mapping_tpu_torch.bench import parts
+
+    ov = dict(PARTS_SMALL, max_raycast_points=1024) if case == "cow_lady" \
+        else PARTS_SMALL
+    fz = parts.freeze(case, dev, ov)
+    inst, cnt = fz.sensor()
+    got, _ = fz.merge(fz.state, inst, cnt)
+    assert parts.state_mismatch(got, fz.mapper_frame(fz.state)) == []
+    cpu = parts.freeze(case, "cpu", ov)
+    assert parts.state_mismatch(ms.state_from_numpy(
+        ms.state_to_numpy(fz.state), device="cpu"), cpu.state) == []
+    for name in ("merge_full", "edt_only", "scroll_step", "scroll_teleport"):
+        a, b = parts.frame_stages(fz)[name], parts.frame_stages(cpu)[name]
+        ga, gb = a.step(a.init()), b.step(b.init())
+        ga, gb = (ga[0], gb[0]) if isinstance(ga, tuple) else (ga, gb)
+        assert parts.state_mismatch(ms.state_from_numpy(
+            ms.state_to_numpy(ga), device="cpu"), gb) == [], name
+
+
+def test_parts_scroll_group_on_gpu(dev):
+    """The scroll group at a reduced window on the card: the recorded steps
+    compose to _do_scroll (compact and full columns), each timed chain
+    runs, and the steps launch the shift and the four row kernels."""
+    from gie_mapping_tpu_torch.bench import parts
+
+    cfg, st = parts.scroll_state("cow_lady", dev, PARTS_SMALL)
+    origin = st.origin_blk.cpu().numpy()
+    for cols in (32, None):
+        assert parts.scroll_composition(st, cfg, origin, cols) == []
+    stages = parts.scroll_stages(st, cfg)
+    recs = {n: parts.time_stage(dev, s, 2, reps=1) for n, s in stages.items()}
+    assert all(r["ms"] > 0 for r in recs.values())
+    moved = set().union(*(r["launches"] for r in recs.values()))
+    assert {"shift_canvas", "gather_block_rows", "scatter_block_rows",
+            "gather_archive_rows", "scatter_archive_rows"} <= moved
+    assert "shift_canvas" in recs["shift"]["launches"]
+    assert "shift_canvas" in recs["compact"]["launches"]
