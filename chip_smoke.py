@@ -178,7 +178,26 @@ Phases, one JSON line each; any failure exits non-zero:
                 every kernel but the generic envelope in the far run.
                 Prints the far run's ms per frame beside the scroll path's
                 of the same call, with the nvidia-smi line.
- 16. bench    - the port's harnesses (gie_mapping_tpu_torch/bench/) at
+ 16. entry    - the driver's entry points (gie_mapping_tpu_torch/graft_entry.py,
+                the port of the root __graft_entry__.py): entry()'s fn(*args)
+                at the cow_lady preset's full width (152x152x80 canvas; a
+                scroll from the fresh state's origin to the pivot-0 origin,
+                then one merge) bitwise against the JAX entry (state, every
+                output, input digests; tests/fixtures/torch_port_entry_ref.npz),
+                timed with CUDA events (1 warm call, then 10); then
+                dryrun_multichip(4) over [card] * 4 (112x112x72 canvas: one
+                merge, a 10-frame replay of precomputed observations with 6
+                scrolls, confined-change and raise frames, one relax-engine
+                frame), every merge and the replay bitwise against the JAX
+                dry run's n = 4, its printed line and its four assertions
+                on numbers, timed again without the recording (ms per
+                frame); phases 1, 2 and 3 and the canvas shift must launch
+                for entry(), phases 1, 2, the generic envelope and the shift
+                in the dry run's canvas-engine frames with no phase 3 (the
+                sharded EDT), and phase 3 in its relax frame (the window
+                EDT).  With two or more cards the dry run again over
+                distinct cards; else a line that says it was not run.
+ 17. bench    - the port's harnesses (gie_mapping_tpu_torch/bench/) at
                 full size: the headline (bench.py's run; its state after
                 warm-up and the first batch call against the fixture's
                 bench run in tests/fixtures/torch_port_replay_ref.npz),
@@ -191,7 +210,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 (tests/test_torch_scenario_cases.py's soak_rmse) under the
                 JAX test's assertions.  Prints each harness's JSON line,
                 each step's wall time and launches.
- 17. parts    - the last of the JAX package's examples/ on the port:
+ 18. parts    - the last of the JAX package's examples/ on the port:
                 bench/parts.py (every group at cow_lady, the frame group at
                 scan2D, depthcam and laser3D; each stage's ms > 0, busy_ms
                 <= 1.05 ms, and the kernels it must launch), the
@@ -206,7 +225,7 @@ Phases, one JSON line each; any failure exits non-zero:
                 printed) and runtime/synthetic_bag.py (10 frames converted
                 and replayed through the CLI).  Prints each line, each
                 step's wall time and launches.
- 18. profile  - only with --profile: torch.profiler over a second run of
+ 19. profile  - only with --profile: torch.profiler over a second run of
                 each path of phases 4-7, over bench.py's 40 frames after
                 its 3 online ones, online and replayed, and over phases
                 9-11's frames (online and replayed).
@@ -264,6 +283,9 @@ REF_MESH = os.path.join(ROOT, "tests", "fixtures", "torch_port_mesh_ref.npz")
 # the scenarios phase (make_torch_port_ref.py --only scenarios writes it)
 REF_SCENARIOS = os.path.join(ROOT, "tests", "fixtures",
                              "torch_port_scenarios_ref.npz")
+REF_ENTRY = os.path.join(ROOT, "tests", "fixtures", "torch_port_entry_ref.npz")
+ENTRY_REPS = 10  # the entry phase's timed calls of entry()'s fn, after 1 warm
+ENTRY_DRYRUN = 4  # the entry phase's dry run: shards over this card
 MESH_SIZES = (2, 4, 8)  # the sharded EDT's mesh sizes in the kernels phase
 MESH_PATH_SIZES = (2, 4)  # the mesh phase's slice runs over [card] * n
 MULTIPROC_FRAMES = 6  # the multiproc phase's frames of the slice
@@ -2949,6 +2971,158 @@ def phase_scenarios(dev, wrappers, smi):
     return {k: total[k] + far[k] for k in total}
 
 
+def dryrun_checked(ref, n, devices, wrappers):
+    """graft_entry.dryrun_multichip(n, devices) with every call recorded,
+    against the JAX dry run's records of the same n in `ref`.  Returns
+    (its numbers, the mismatches, the launches of the canvas-engine steps
+    (every call but the last), the launches of the relax-engine frame)."""
+    import io
+
+    import numpy as np
+
+    from gie_mapping_tpu_torch import graft_entry as ge
+
+    calls, marks = [], []
+    record = ge.recorder(calls)
+
+    def on_call(*a, **kw):
+        marks.append({k: w.launches for k, w in wrappers.items()})
+        record(*a, **kw)
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        res, got = _counted(wrappers, lambda: ge.dryrun_multichip(
+            n, devices=devices, on_call=on_call))
+    pre = f"dry{n}/"
+    bad = [] if buf.getvalue().strip() == str(ref[pre + "line"]) else ["line"]
+    if len(calls) != int(ref[pre + "calls"]):
+        bad.append(f"calls {len(calls)}")
+    for i, rec in enumerate(calls):
+        p = f"{pre}{i}/"
+        want = {k[len(p):]: ref[k] for k in ref.files if k.startswith(p)}
+        bad += [f"{i}/{k}" for k in sorted(set(rec) | set(want))
+                if k not in rec or k not in want
+                or np.asarray(rec[k]).tolist() != want[k].tolist()]
+    canvas = marks[-2] if len(marks) > 1 else got
+    relax = {k: got[k] - canvas[k] for k in got}
+    return res, bad, canvas, relax
+
+
+def phase_entry(dev, wrappers, smi):
+    """The driver's entry points (gie_mapping_tpu_torch/graft_entry.py), on
+    the card, against the JAX package's (tests/fixtures/torch_port_entry_ref.npz):
+    entry()'s fn(*args) at the cow_lady preset's full width (a scroll to
+    the pivot-0 origin, then one merge), bitwise, then timed with CUDA
+    events (1 warm call, ENTRY_REPS timed); dryrun_multichip over
+    [card] * ENTRY_DRYRUN, every merge and the replay bitwise, its line and
+    assertions, then timed again without the recording; with two or more
+    cards the dry run over distinct cards.  Returns the launch counts of
+    the entry call and the recorded dry run."""
+    import io
+
+    import numpy as np
+    import torch
+
+    from gie_mapping_tpu_torch import graft_entry as ge
+    from gie_mapping_tpu_torch.map_state import (output_digest, state_digest,
+                                                 state_to_numpy)
+    from gie_mapping_tpu_torch.models.pipeline import _slab_menu
+
+    ph = "entry"
+    ref = np.load(REF_ENTRY)
+    sub = lambda p: {k[len(p):]: ref[k] for k in ref.files if k.startswith(p)}
+    t0 = time.perf_counter()
+
+    # -- entry() -----------------------------------------------------------------
+    fn, args = ge.entry(dev)
+    inst, cnt, pvt, origin_blk, off, (ll, ur, act, nf) = args[1:]
+    want_in = sub("entry/in/")
+    bad = [k for k, v in (("inst_sha", inst), ("ray_count_sha", cnt),
+                          ("ll_sha", ll), ("ur_sha", ur), ("active_sha", act))
+           if ge.array_sha(v.cpu().numpy()) != str(want_in[k])]
+    bad += [k for k, v in (("pvt", pvt), ("origin_blk", origin_blk), ("off", off))
+            if not _same(v, want_in[k])]
+    if nf != int(want_in["n"]):
+        bad.append("n")
+    before = state_digest(state_to_numpy(args[0]))
+
+    def check(st, out):
+        o = {k: v.cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v)
+             for k, v in out.items()}
+        miss = [] if state_digest(state_to_numpy(st)) == str(ref["entry/state_sha"]) \
+            else ["state_sha"]
+        if output_digest(o["glb_type"], o["dist_sq"], o["coc"]) != str(ref["entry/out_sha"]):
+            miss.append("out_sha")
+        if ge.output_shapes(out) != {k: tuple(v.tolist())
+                                     for k, v in sub("entry/shape/").items()}:
+            miss.append("shapes")
+        miss += [k for k, v in sub("entry/value/").items() if o[k].item() != v.item()]
+        miss += [k for k, v in sub("entry/sha/").items()
+                 if ge.array_sha(o[k]) != str(v)]
+        return miss
+
+    (st, out), got_e = _counted(wrappers, lambda: fn(*args))
+    bad += check(st, out)
+    entry_ms = cuda_ms(lambda: fn(*args), reps=ENTRY_REPS, warm=1)
+    bad += [f"repeat/{k}" for k in check(*fn(*args))]
+    if state_digest(state_to_numpy(args[0])) != before:
+        bad.append("args_changed")
+    emit({"phase": ph, "part": "entry", "canvas": list(st.vox_type.shape),
+          "shapes": {k: list(v) for k, v in ge.output_shapes(out).items()},
+          "gate_level": int(out["gate_level"]), "launches": got_e,
+          "fixture_mismatch": bad, "ms": entry_ms, "reps": ENTRY_REPS,
+          "nvidia_smi": smi})
+    require(not bad, ph, f"entry() differs from the JAX entry in {bad}")
+    need = ("phase1", "envelope_packed", "envelope_mid", "shift_canvas")
+    require(all(got_e[k] > 0 for k in need), ph,
+            f"a kernel of entry() never launched: {got_e}")
+
+    # -- dryrun_multichip over this card ---------------------------------------
+    n = ENTRY_DRYRUN
+    res, bad, canvas, relax = dryrun_checked(ref, n, [dev] * n, wrappers)
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        _, wall_s = timed_wall(lambda: ge.dryrun_multichip(n, devices=[dev] * n))
+    torch.cuda.synchronize()
+    levels = res["gate_levels"]
+    n_menu = len(_slab_menu(ge.dryrun_config(n).canvas_size))
+    asserted = {"raise_rises": res["raise_after"] > res["raise_probe"],
+                "slab_level": any(0 <= g < n_menu for g in levels),
+                "intermediate_level": any(0 < g < n_menu for g in levels),
+                "relax_iterates": res["relax_iters"] > 0}
+    emit({"phase": ph, "part": "dryrun", "shards": n,
+          "devices": [str(dev)] * n, **res, "fixture_mismatch": bad,
+          "asserted": asserted, "launches_canvas_engine": canvas,
+          "launches_relax_frame": relax,
+          "ms_per_frame": wall_s * 1e3 / res["merges"],
+          "wall_s_unrecorded": round(wall_s, 4), "nvidia_smi": smi})
+    require(not bad, ph, f"the dry run differs from the JAX dry run in {bad}")
+    require(all(asserted.values()), ph, f"a dry-run assertion failed: {asserted}")
+    require(all(canvas[k] > 0 for k in ("phase1", "envelope_packed", "envelope",
+                                        "shift_canvas"))
+            and canvas["envelope_mid"] == 0, ph,
+            f"the sharded canvas EDT's kernels must run: {canvas}")
+    require(relax["envelope_mid"] > 0, ph,
+            f"the relax frame's window EDT must run phase 3: {relax}")
+
+    # -- distinct cards --------------------------------------------------------------
+    cards = torch.cuda.device_count()
+    nd = next((k for k in MESH_SIZES[::-1] if k <= cards), 0)
+    if nd < 2:
+        emit({"phase": ph, "part": "distinct_cards",
+              "not_run": f"{cards} CUDA device: a dry run over distinct cards "
+                         "needs two"})
+    else:
+        dres, dbad, _, _ = dryrun_checked(ref, nd, None, wrappers)
+        emit({"phase": ph, "part": "distinct_cards", "devices": nd, **dres,
+              "fixture_mismatch": dbad})
+        require(not dbad, ph, f"the dry run over {nd} cards differs in {dbad}")
+    got = {k: got_e[k] + canvas[k] + relax[k] for k in wrappers}
+    emit({"phase": ph, "ok": True, "launches": got,
+          "seconds": round(time.perf_counter() - t0, 3)})
+    return got
+
+
 def phase_bench(dev, wrappers, smi):
     """The port's harnesses (gie_mapping_tpu_torch/bench/) at full size,
     each through its plain function as `python -m` runs it: the headline
@@ -3675,6 +3849,7 @@ def main(argv=None) -> int:
                                          parent),
                               phase_multiproc(dev, smi),
                               phase_scenarios(dev, all_wrappers(), smi),
+                              phase_entry(dev, all_wrappers(), smi),
                               phase_bench(dev, all_wrappers(), smi),
                               phase_parts(dev, all_wrappers(), smi)):
             launches = {k: launches.get(k, 0) + v for k, v in path_launches.items()}

@@ -799,7 +799,7 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
                   origin_blk, input_pointcloud: bool, use_fence: bool = True,
                   compact_cols=None, has_scrolls: bool = True, points=None,
                   pts_valid=None, sensor_data=None, sensor_kind=None,
-                  mesh=None):
+                  inst_type=None, ray_count=None, mesh=None):
     """A planned run of K frames (the JAX package's replay_frames and its
     scan program, as a Python loop).
 
@@ -810,11 +810,13 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
     whether the frame's canvas origin differs from the previous frame's.
     origin_blk: the canvas origin before the run (host ints).
     compact_cols: each frame's column bucket for its scroll (a list of K;
-    None, or a None entry, moves every column).  The frames' data: points /
-    pts_valid [K, N, 3] / [K, N] (the point-cloud model, transformed as
-    fuse_raycast rounds it) or sensor_data [K, ...] with sensor_kind
-    "scan", "depth" or "multiscan" (each frame's ranges, depth image or
-    ring image).  mesh: as merge_frame's.
+    None, or a None entry, moves every column).  The frames' data, exactly
+    one pair of: points / pts_valid [K, N, 3] / [K, N] (the point-cloud
+    model, transformed as fuse_raycast rounds it); sensor_data [K, ...]
+    with sensor_kind "scan", "depth" or "multiscan" (each frame's ranges,
+    depth image or ring image); inst_type / ray_count [K, X, Y, Z] int8 /
+    int32 tensors on the state's device (precomputed observations, merged
+    as given).  Any other mix raises ValueError.  mesh: as merge_frame's.
 
     Every frame runs merge_frame with its enter_shift; only the last emits
     its window outputs.  Returns (state', last outputs, changed_union
@@ -829,6 +831,16 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
             "replay_frames(has_scrolls=False) requires scrolled[k] == False "
             "for every frame; got a scrolling frame. Pass has_scrolls=True "
             "(or plan per-run like VolumetricMapper).")
+    pairs = {"points / pts_valid": (points, pts_valid),
+             "sensor_data / sensor_kind": (sensor_data, sensor_kind),
+             "inst_type / ray_count": (inst_type, ray_count)}
+    given = [k for k, pair in pairs.items() if any(v is not None for v in pair)]
+    if len(given) != 1 or any(v is None for v in pairs[given[0]]):
+        raise ValueError(
+            "replay_frames takes exactly one whole pair of points / "
+            "pts_valid, sensor_data / sensor_kind and inst_type / ray_count; "
+            f"got {given or 'none'}"
+            + (" with half of the pair missing" if len(given) == 1 else ""))
     n = len(poses)
     if compact_cols is None:
         compact_cols = [None] * n
@@ -848,7 +860,9 @@ def replay_frames(state: MapState, poses, scrolled, fence, *, cfg: MapConfig,
                                              origin.astype(np.int64) - prev)
             prev = origin.astype(np.int64)
         rot, sensor_origin = poses[k, 3:6], poses[k, 6]
-        if sensor_kind is None:
+        if inst_type is not None:
+            inst, cnt = inst_type[k], ray_count[k]
+        elif sensor_kind is None:
             inst, cnt = pointcloud_sensor(points[k], pts_valid[k], rot,
                                           sensor_origin, pvt, cfg=cfg,
                                           fused=True)

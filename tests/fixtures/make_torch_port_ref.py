@@ -4,7 +4,7 @@ these files are the port's only link to the reference there):
 
     JAX_PLATFORMS=cpu python tests/fixtures/make_torch_port_ref.py \
         [--only slice|scroll|scan2d|flat|replay|depthcam|laser3d|dda|cli|mesh|
-                scenarios]
+                scenarios|entry]
 
 tests/fixtures/torch_port_cow_ref.npz, the slice
 (gie_mapping_tpu_torch.runtime.datasets.cow_lady_slice: cow_lady preset,
@@ -120,6 +120,18 @@ largest global x coc.  It asserts the scenarios' own properties (the
 warnings fire where they must, nothing drops where nothing may, the far
 run archives and re-enters and its mirror holds global cocs past
 32,767).  About three minutes on the CPU.
+
+tests/fixtures/torch_port_entry_ref.npz, the driver's entry points (the
+root __graft_entry__.py, ported as gie_mapping_tpu_torch/graft_entry.py):
+`entry/...`, entry() jitted as the file's __main__ runs it (the cow_lady
+preset at full width): the input digests of _frame_inputs, the state and
+window-output digests, and every output's shape, its value (scalars) or
+its sha256 (arrays); `dry{n}/...` for n = 2, 4 and 8 over ENTRY_DEVICES
+virtual CPU devices, dryrun_multichip(n) with the JAX pipeline's
+merge_frame and replay_frames recording every call (graft_entry.call_record:
+state, window outputs, changed blocks, gate level, relax sweeps, the
+replay's per_frame) and the printed line with its numbers.  Digests and
+scalars only; a few minutes on the CPU.
 """
 from __future__ import annotations
 
@@ -144,7 +156,10 @@ OUT_DDA = os.path.join(HERE, "torch_port_dda_ref.npz")
 OUT_CLI = os.path.join(HERE, "torch_port_cli_ref.npz")
 OUT_MESH = os.path.join(HERE, "torch_port_mesh_ref.npz")
 OUT_SCENARIOS = os.path.join(HERE, "torch_port_scenarios_ref.npz")
+OUT_ENTRY = os.path.join(HERE, "torch_port_entry_ref.npz")
 MESH_DEVICES = 4  # the mesh phase's mesh (virtual CPU devices here)
+ENTRY_DEVICES = 8  # the dry runs' virtual CPU devices (the largest mesh)
+DRYRUN_SIZES = (2, 4, 8)
 SCROLL_CHUNK = 10  # the scroll path's replay: frames per scanned run
 # the true 2-D map: the scan2D preset with a one-voxel-deep window on the
 # relax engine
@@ -817,17 +832,121 @@ def run_scenarios(path):
           f"({time.time() - t0:.1f} s)")
 
 
+def _np_tree(d):
+    return {k: np.asarray(v) for k, v in d.items()}
+
+
+def run_entry(path):
+    """The root __graft_entry__.py's entry() and dryrun_multichip(n); writes
+    `path`."""
+    import contextlib
+    import io
+    import re
+
+    import jax
+
+    import __graft_entry__ as ge
+
+    # the file turns on a persistent compilation cache at import: off again
+    # (nothing is written outside the checkout)
+    jax.config.update("jax_compilation_cache_dir", None)
+    from gie_mapping_tpu.models import pipeline
+    from gie_mapping_tpu.utils.config import cow_lady_config
+    from gie_mapping_tpu_torch.graft_entry import array_sha, call_record
+    from gie_mapping_tpu_torch.map_state import output_digest, state_digest
+
+    t0 = time.time()
+    assert len(jax.devices()) == ENTRY_DEVICES, jax.devices()
+    arrays = {}
+    inst, cnt, pvt, origin_blk, off, ll, ur, act, n = (
+        np.asarray(v) for v in ge._frame_inputs(cow_lady_config()))
+    arrays.update({"entry/in/inst_sha": array_sha(inst),
+                   "entry/in/ray_count_sha": array_sha(cnt),
+                   "entry/in/pvt": pvt, "entry/in/origin_blk": origin_blk,
+                   "entry/in/off": off, "entry/in/ll_sha": array_sha(ll),
+                   "entry/in/ur_sha": array_sha(ur),
+                   "entry/in/active_sha": array_sha(act), "entry/in/n": n})
+    fn, args = ge.entry()
+    st, out = jax.jit(fn)(*args)
+    out = _np_tree(out)
+    arrays["entry/state_sha"] = state_digest(_np_tree(
+        {f.name: getattr(st, f.name) for f in dataclasses.fields(st)}))
+    arrays["entry/out_sha"] = output_digest(out["glb_type"], out["dist_sq"],
+                                            out["coc"])
+    for k, v in out.items():
+        arrays[f"entry/shape/{k}"] = np.asarray(v.shape, np.int64)
+        if v.ndim:
+            arrays[f"entry/sha/{k}"] = array_sha(v)
+        else:
+            arrays[f"entry/value/{k}"] = v
+    print("entry:", {k: v.shape for k, v in out.items()},
+          f"gate_level {int(out['gate_level'])} ({time.time() - t0:.1f} s)",
+          flush=True)
+
+    orig = pipeline.merge_frame, pipeline.replay_frames
+    for nd in DRYRUN_SIZES:
+        calls = []
+
+        def merge(*a, **kw):
+            st, out = orig[0](*a, **kw)
+            calls.append(call_record(
+                _np_tree({f.name: getattr(st, f.name)
+                          for f in dataclasses.fields(st)}),
+                _np_tree(out), np.asarray(out["changed_blk"])))
+            return st, out
+
+        def replay(*a, **kw):
+            st, out, union, per_frame = orig[1](*a, **kw)
+            calls.append(call_record(
+                _np_tree({f.name: getattr(st, f.name)
+                          for f in dataclasses.fields(st)}),
+                _np_tree(out), np.asarray(union), _np_tree(per_frame)))
+            return st, out, union, per_frame
+
+        pipeline.merge_frame, pipeline.replay_frames = merge, replay
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                ge.dryrun_multichip(nd)
+        finally:
+            pipeline.merge_frame, pipeline.replay_frames = orig
+        line = buf.getvalue().strip()
+        m = re.fullmatch(
+            r"dryrun_multichip\((\d+)\): ok — relax_iters=(\d+), "
+            r"present=(\d+), replay_frames=(\d+), scrolls=(\d+), "
+            r"gate_levels=\[([\d, ]*)\], raise_dist (\S+)->(\S+)", line)
+        assert m and int(m[1]) == nd, line
+        pre = f"dry{nd}/"
+        arrays.update({
+            pre + "line": line, pre + "calls": len(calls),
+            pre + "relax_iters": int(m[2]), pre + "present": int(m[3]),
+            pre + "replay_frames": int(m[4]), pre + "scrolls": int(m[5]),
+            pre + "gate_levels": np.asarray([int(g) for g in m[6].split(",")]),
+            pre + "raise_probe": float(m[7]), pre + "raise_after": float(m[8])})
+        for i, rec in enumerate(calls):
+            arrays.update({f"{pre}{i}/{k}": np.asarray(v)
+                           for k, v in rec.items()})
+        print(line, f"{len(calls)} calls ({time.time() - t0:.1f} s)",
+              flush=True)
+    np.savez_compressed(path, **{k: np.asarray(v) for k, v in arrays.items()})
+    print("written:", path, os.path.getsize(path), "bytes",
+          f"({time.time() - t0:.1f} s)")
+
+
 def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", choices=("slice", "scroll", "scan2d", "flat",
                                        "replay", "depthcam", "laser3d",
-                                       "dda", "cli", "mesh", "scenarios"))
+                                       "dda", "cli", "mesh", "scenarios",
+                                       "entry"))
     args = ap.parse_args()
     sys.path.insert(0, os.path.join(HERE, "..", ".."))
     import jax
 
     jax.config.update("jax_platforms", "cpu")
-    if args.only in (None, "mesh"):
+    if args.only in (None, "entry"):
+        jax.config.update("jax_num_cpu_devices", ENTRY_DEVICES)
+    elif args.only == "mesh":
         jax.config.update("jax_num_cpu_devices", MESH_DEVICES)
     from gie_mapping_tpu_torch.runtime.datasets import (cow_lady_scroll,
                                                         cow_lady_slice,
@@ -856,6 +975,8 @@ def main():
         run_mesh(OUT_MESH)
     if args.only in (None, "scenarios"):
         run_scenarios(OUT_SCENARIOS)
+    if args.only in (None, "entry"):
+        run_entry(OUT_ENTRY)
 
 
 if __name__ == "__main__":

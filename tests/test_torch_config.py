@@ -200,7 +200,8 @@ def test_port_never_imports_jax():
         for name in names:
             importlib.import_module(name)
         rt = pkg.__name__ + ".runtime."
-        want = [pkg.__name__ + ".cli", pkg.__name__ + ".parallel.mesh",
+        want = [pkg.__name__ + ".cli", pkg.__name__ + ".graft_entry",
+                pkg.__name__ + ".parallel.mesh",
                 pkg.__name__ + ".parallel.multihost_demo"] + [
             pkg.__name__ + ".bench." + m
             for m in ("common", "headline", "suite", "scaling", "parts",
@@ -211,12 +212,12 @@ def test_port_never_imports_jax():
             "datasets", "host_mirror", "synthetic_bag")]
         missing = sorted(set(want) - set(names))
         assert not missing, missing
-        # neither JAX, nor the JAX package, nor its scripts (examples/ and
-        # the root harnesses)
+        # neither JAX, nor the JAX package, nor its scripts (examples/, the
+        # root harnesses and the root entry points)
         bad = sorted(k for k in sys.modules
                      if k in ("jax", "gie_mapping_tpu", "bench", "bench_suite",
                               "bench_scaling", "run_case",
-                              "make_synthetic_bag")
+                              "make_synthetic_bag", "__graft_entry__")
                      or k.startswith(("jax.", "jaxlib", "gie_mapping_tpu.",
                                       "examples")))
         print(bad)
