@@ -37,6 +37,7 @@ from .ops.kernels.blockrows import (gather_archive_rows, gather_block_rows,
 from .ops.kernels.shift import shift_canvas
 from .parallel.mesh import (Sharded, all_reduce, bounds_of, fetch_rows,
                             field_sharding, put, smap, to_numpy)
+from .runtime import profiler
 from .utils.config import MapConfig
 from .utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_UNKNOWN
 
@@ -506,75 +507,79 @@ def _do_scroll(state: MapState, new_origin_blk, cfg: MapConfig,
     old_t = torch.as_tensor(old.astype(np.int32), device=dev)
     new_t = torch.as_tensor(new.astype(np.int32), device=dev)
 
-    # ---- 1. archive outgoing present blocks -----------------------------
-    out_ax = []
-    for a, n in enumerate(cb):
-        p = torch.arange(n, device=dev) - int(shift[a])
-        out_ax.append((p < 0) | (p >= n))
-    exits = (out_ax[0][:, None, None] | out_ax[1][None, :, None]
-             | out_ax[2][None, None, :]) & state.present
-    old_dir = _arch_directory(state.arch_keys, state.n_arch, old_t, cb)
-    have_slot = (old_dir >= 0).reshape(-1)
-    exits_f = exits.reshape(-1)
-    need_new = exits_f & ~have_slot
-    order = torch.cumsum(need_new.to(torch.int32), 0, dtype=torch.int32) - 1
-    slot_new = state.n_arch + order
-    ok_new = need_new & (slot_new < B)
-    slot = torch.where(have_slot, old_dir.reshape(-1),
-                       torch.where(ok_new, slot_new, B))
-    slot = torch.where(exits_f, slot, B)  # only outgoing blocks write
+    profiler.count("scroll.cols", compact_cols)
+    with profiler.span("scroll.archive_out"):
+        # ---- 1. archive outgoing present blocks -----------------------------
+        out_ax = []
+        for a, n in enumerate(cb):
+            p = torch.arange(n, device=dev) - int(shift[a])
+            out_ax.append((p < 0) | (p >= n))
+        exits = (out_ax[0][:, None, None] | out_ax[1][None, :, None]
+                 | out_ax[2][None, None, :]) & state.present
+        old_dir = _arch_directory(state.arch_keys, state.n_arch, old_t, cb)
+        have_slot = (old_dir >= 0).reshape(-1)
+        exits_f = exits.reshape(-1)
+        need_new = exits_f & ~have_slot
+        order = torch.cumsum(need_new.to(torch.int32), 0, dtype=torch.int32) - 1
+        slot_new = state.n_arch + order
+        ok_new = need_new & (slot_new < B)
+        slot = torch.where(have_slot, old_dir.reshape(-1),
+                           torch.where(ok_new, slot_new, B))
+        slot = torch.where(exits_f, slot, B)  # only outgoing blocks write
 
-    bidx_all = torch.arange(cbx * cby * cbz, dtype=torch.int32, device=dev)
-    abs_key = _block_pos_vox(bidx_all, cb) // VB_WIDTH + old_t[None, :]
-    new_keys = _write_keys(state.arch_keys, slot, abs_key)
-    n_need = need_new.sum(dtype=torch.int32)
-    granted = torch.minimum(n_need, B - state.n_arch)
-    dropped = n_need - granted
+        bidx_all = torch.arange(cbx * cby * cbz, dtype=torch.int32, device=dev)
+        abs_key = _block_pos_vox(bidx_all, cb) // VB_WIDTH + old_t[None, :]
+        new_keys = _write_keys(state.arch_keys, slot, abs_key)
+        n_need = need_new.sum(dtype=torch.int32)
+        granted = torch.minimum(n_need, B - state.n_arch)
+        dropped = n_need - granted
 
-    packed = smap(pack_voxels, state.occ_val, state.vox_type, state.dist_sq,
-                  state.coc)
-    jz = torch.arange(cbz, dtype=torch.int32, device=dev)
-    # archive rows anchor cocs to their OWN block origin
-    cids, cidv = _compact_ids(exits.any(2).reshape(-1), compact_cols)
-    crows = _gather_blocks(packed, cids, cb)
-    bidx = cids[:, None] * cbz + jz[None, :]
-    crows = shift_packed_coc(
-        crows, -_block_pos_vox(bidx.reshape(-1), cb)[:, None, :])
-    cslot = torch.where(cidv[:, None], slot[bidx.to(torch.int64)], B).reshape(-1)
-    aval = cslot < B
-    a_packed = _scatter_archive(state.a_packed, crows,
-                                torch.where(aval, cslot, 0),
-                                aval.to(torch.int32))
-    n_arch = state.n_arch + granted
+        packed = smap(pack_voxels, state.occ_val, state.vox_type, state.dist_sq,
+                      state.coc)
+        jz = torch.arange(cbz, dtype=torch.int32, device=dev)
+        # archive rows anchor cocs to their OWN block origin
+        cids, cidv = _compact_ids(exits.any(2).reshape(-1), compact_cols)
+        crows = _gather_blocks(packed, cids, cb)
+        bidx = cids[:, None] * cbz + jz[None, :]
+        crows = shift_packed_coc(
+            crows, -_block_pos_vox(bidx.reshape(-1), cb)[:, None, :])
+        cslot = torch.where(cidv[:, None], slot[bidx.to(torch.int64)], B).reshape(-1)
+        aval = cslot < B
+        a_packed = _scatter_archive(state.a_packed, crows,
+                                    torch.where(aval, cslot, 0),
+                                    aval.to(torch.int32))
+        n_arch = state.n_arch + granted
 
-    # ---- 2. one-pass shift of the canvas, cocs re-anchored --------------
-    packed = _shift_packed(packed, shift, cb)
-    present = shift_fill(state.present, shift, False)
-    # the per-cell dist bound rolls with the canvas (a block is 2 cells);
-    # exposed cells reset to -1, restored cells get the conservative max
-    dmax_cell = shift_fill(state.dmax_cell, shift * 2, -1)
+    with profiler.span("scroll.shift"):
+        # ---- 2. one-pass shift of the canvas, cocs re-anchored --------------
+        packed = _shift_packed(packed, shift, cb)
+        present = shift_fill(state.present, shift, False)
+        # the per-cell dist bound rolls with the canvas (a block is 2 cells);
+        # exposed cells reset to -1, restored cells get the conservative max
+        dmax_cell = shift_fill(state.dmax_cell, shift * 2, -1)
 
-    # ---- 3. load entering blocks from the archive ------------------------
-    new_dir = _arch_directory(new_keys, n_arch, new_t, cb)
-    entering = ~present & (new_dir >= 0)
-    gslot = torch.where(entering, new_dir, 0).reshape(-1)
-    ent2 = entering
-    for ax in range(3):
-        ent2 = ent2.repeat_interleave(2, dim=ax)
-    dmax_cell = torch.where(ent2, EMPTY_VALUE, dmax_cell)
+    with profiler.span("scroll.archive_in"):
+        # ---- 3. load entering blocks from the archive ------------------------
+        new_dir = _arch_directory(new_keys, n_arch, new_t, cb)
+        entering = ~present & (new_dir >= 0)
+        gslot = torch.where(entering, new_dir, 0).reshape(-1)
+        ent2 = entering
+        for ax in range(3):
+            ent2 = ent2.repeat_interleave(2, dim=ax)
+        dmax_cell = torch.where(ent2, EMPTY_VALUE, dmax_cell)
 
-    cids2, cidv2 = _compact_ids(entering.any(2).reshape(-1), compact_cols)
-    bidx2 = (cids2[:, None] * cbz + jz[None, :]).to(torch.int64)
-    valid_b = entering.reshape(-1)[bidx2] & cidv2[:, None]
-    slot_b = torch.where(valid_b, gslot[bidx2], 0).reshape(-1)
-    grows = _gather_archive(a_packed, slot_b)
-    # entering rows re-anchor block-relative -> new-canvas-relative
-    grows = shift_packed_coc(grows, _block_pos_vox(bidx2.reshape(-1), cb)[:, None, :])
-    packed = _scatter_blocks(packed, grows, cids2,
-                             valid_b.reshape(-1).to(torch.int32), cb)
-    present = present | entering
+        cids2, cidv2 = _compact_ids(entering.any(2).reshape(-1), compact_cols)
+        bidx2 = (cids2[:, None] * cbz + jz[None, :]).to(torch.int64)
+        valid_b = entering.reshape(-1)[bidx2] & cidv2[:, None]
+        slot_b = torch.where(valid_b, gslot[bidx2], 0).reshape(-1)
+        grows = _gather_archive(a_packed, slot_b)
+        # entering rows re-anchor block-relative -> new-canvas-relative
+        grows = shift_packed_coc(grows, _block_pos_vox(bidx2.reshape(-1), cb)[:, None, :])
+        packed = _scatter_blocks(packed, grows, cids2,
+                                 valid_b.reshape(-1).to(torch.int32), cb)
+        present = present | entering
 
-    occ_val, vox_type, dist_sq, coc = smap(unpack_voxels, packed)
+        occ_val, vox_type, dist_sq, coc = smap(unpack_voxels, packed)
     return dataclasses.replace(
         state, origin_blk=new_t, occ_val=occ_val, vox_type=vox_type,
         dist_sq=dist_sq, coc=coc, present=present, arch_keys=new_keys,

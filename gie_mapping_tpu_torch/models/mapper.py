@@ -33,6 +33,7 @@ import torch
 from ..map_state import (MapState, canvas_geometry, resolve_device,
                          shift_block_mask, state_from_numpy, stream_extract)
 from ..parallel.mesh import to_numpy
+from ..runtime import profiler
 from ..utils import geometry as geo
 from ..utils.config import (DEFAULT_FENCE_LL, DEFAULT_FENCE_UR, MapConfig,
                             unported_options)
@@ -268,6 +269,10 @@ class VolumetricMapper:
 
     def __init__(self, cfg: MapConfig, device=None,
                  log_path: Optional[str] = None, mesh=None):
+        with profiler.span("mapper.create"):
+            self._create(cfg, device, log_path, mesh)
+
+    def _create(self, cfg: MapConfig, device, log_path, mesh):
         if device is not None and mesh is not None:
             raise ValueError("device and mesh are mutually exclusive: a mesh "
                              "places state across its own devices")
@@ -434,9 +439,10 @@ class VolumetricMapper:
                 self._stream_carry = shift_block_mask(
                     self._stream_carry, np.asarray(origin_blk, np.int64) - prev)
             self._origin = np.asarray(origin_blk).copy()
-            self.state, enter_shift = scroll_step(
-                self.state, origin_blk, cfg=cfg, compact_cols=cols,
-                old_origin_blk=prev)
+            with profiler.span("scroll"):
+                self.state, enter_shift = scroll_step(
+                    self.state, origin_blk, cfg=cfg, compact_cols=cols,
+                    old_origin_blk=prev)
         self.state, out = merge_frame(
             self.state, inst_type, ray_count, pvt, origin_blk, off, fence,
             cfg=cfg, input_pointcloud=input_pointcloud, use_fence=fence_on,
@@ -450,7 +456,8 @@ class VolumetricMapper:
         self.last_output = result
         if (cfg.display_glb_edt or cfg.display_glb_ogm) and (
                 self.map_ct % cfg.vis_interval == 0):
-            self._stream(out, origin_blk)
+            with profiler.span("stream"):
+                self._stream(out, origin_blk)
         self._queue_capacity_guard(
             out["arch_dropped"],
             out["relax_iters"] if cfg.merge_mode == "relax" else None)
@@ -507,8 +514,9 @@ class VolumetricMapper:
         if p is None:
             return
         (dropped,), ev, relax_iters = p
-        if ev is not None:
-            ev.synchronize()
+        with profiler.span("capacity.wait"):
+            if ev is not None:
+                ev.synchronize()
         dropped = int(dropped)
         if dropped > self._cap_dropped_seen:
             n = dropped - self._cap_dropped_seen
@@ -665,8 +673,9 @@ class VolumetricMapper:
         if p is None:
             return 0
         (ids, valid, rows, blk_mask, lo_cnt), ev, origin_blk = p
-        if ev is not None:
-            ev.synchronize()
+        with profiler.span("stream.wait"):
+            if ev is not None:
+                ev.synchronize()
         n = self.mirror.ingest_rows(
             ids.numpy(), valid.numpy(), rows.numpy().view(np.uint32),
             blk_mask.numpy(), origin_blk)
@@ -674,6 +683,7 @@ class VolumetricMapper:
         # backlog stall: a leftover the rotation cannot cycle through within
         # stream_stall_ticks ticks, for that many consecutive ticks
         self._last_leftover = int(lo_cnt)
+        profiler.count("stream.backlog_cols", self._last_leftover)
         k = self._stream_k_cols
         if self._last_leftover > self.cfg.stream_stall_ticks * k:
             self._stream_stall += 1
@@ -728,16 +738,21 @@ class VolumetricMapper:
         pipeline.SENSORS): data is its measurement (a numpy array or a
         tensor); row7 and row8 its scalars, carried as float32 as the JAX
         package packs them into pose rows 7-8."""
-        t0 = time.perf_counter()
-        proj = self._sensor_proj(proj)
-        origin = proj.trans.cpu().numpy().astype(np.float32)
-        pvt, origin_blk, off = self._frame_geometry(origin)
-        sc = self._sensor_scalars(1, row7, row8)[0]
-        inst, counts = SENSORS[kind](
-            torch.as_tensor(data, dtype=torch.float32).to(self.device),
-            proj.rot.cpu().numpy(), origin, sc[0], sc[1], pvt, cfg=self.cfg)
-        return self._run(inst, counts, pvt, origin_blk, off,
-                         input_pointcloud=False, t_sensor0=t0)
+        with profiler.span("frame", frame=self.map_ct + 1):
+            t0 = time.perf_counter()
+            proj = self._sensor_proj(proj)
+            origin = proj.trans.cpu().numpy().astype(np.float32)
+            pvt, origin_blk, off = self._frame_geometry(origin)
+            sc = self._sensor_scalars(1, row7, row8)[0]
+            with profiler.span("sensor.stage"):
+                data = torch.as_tensor(data, dtype=torch.float32).to(self.device)
+            rot = proj.rot.cpu().numpy()
+            with profiler.span("sensor"):
+                inst, counts = SENSORS[kind](data, rot, origin, sc[0], sc[1],
+                                             pvt, cfg=self.cfg)
+            del data  # the staged measurement is freed before the merge
+            return self._run(inst, counts, pvt, origin_blk, off,
+                             input_pointcloud=False, t_sensor0=t0)
 
     def process_scan2d(self, proj: geo.Projection, ranges, theta_min,
                        theta_inc):
@@ -772,20 +787,26 @@ class VolumetricMapper:
         transform rounds as the JAX package's frame program rounds it (it
         moves there), else (and always with raycast_mode "dda") as its
         eager transform."""
-        t0 = time.perf_counter()
-        proj = self._sensor_proj(proj)
-        origin = proj.trans.cpu().numpy().astype(np.float32)
-        pvt, origin_blk, off = self._frame_geometry(origin)
-        if isinstance(points_sensor, torch.Tensor) and valid is not None:
-            buf, vmask = points_sensor.to(self.device), valid.to(self.device)
-        else:
-            buf, vmask = self.stage_pointcloud(points_sensor, valid=valid)
-        inst, counts = pointcloud_sensor(
-            buf, vmask, proj.rot.cpu().numpy(), origin, pvt, cfg=self.cfg,
-            fused=(self.cfg.fuse_raycast
-                   and self.cfg.raycast_mode == "projective"))
-        return self._run(inst, counts, pvt, origin_blk, off,
-                         input_pointcloud=True, t_sensor0=t0)
+        with profiler.span("frame", frame=self.map_ct + 1):
+            t0 = time.perf_counter()
+            proj = self._sensor_proj(proj)
+            origin = proj.trans.cpu().numpy().astype(np.float32)
+            pvt, origin_blk, off = self._frame_geometry(origin)
+            with profiler.span("sensor.stage"):
+                if isinstance(points_sensor, torch.Tensor) and valid is not None:
+                    buf, vmask = (points_sensor.to(self.device),
+                                  valid.to(self.device))
+                else:
+                    buf, vmask = self.stage_pointcloud(points_sensor,
+                                                       valid=valid)
+            rot = proj.rot.cpu().numpy()
+            with profiler.span("sensor"):
+                inst, counts = pointcloud_sensor(
+                    buf, vmask, rot, origin, pvt, cfg=self.cfg,
+                    fused=(self.cfg.fuse_raycast
+                           and self.cfg.raycast_mode == "projective"))
+            return self._run(inst, counts, pvt, origin_blk, off,
+                             input_pointcloud=True, t_sensor0=t0)
 
     # -- batched replay (throughput mode) ------------------------------------
     # the smallest compacted-scroll buckets; a canvas smaller than both
@@ -961,61 +982,64 @@ class VolumetricMapper:
                 i += 1
                 continue
             plan = plan[:run_len]
-            t0 = time.perf_counter()
-            n = len(plan)
-            pose_h = np.zeros((n, 9, 3), np.float32)
-            scrolled = np.zeros(n, bool)
-            for k, (pvt, origin_blk, off, scr, idx, _) in enumerate(plan):
-                pose_h[k, 0], pose_h[k, 1], pose_h[k, 2] = pvt, origin_blk, off
-                pose_h[k, 3:6] = projs[idx].rot.cpu().numpy()
-                pose_h[k, 6] = projs[idx].trans.cpu().numpy()
-                if scalars is not None:
-                    pose_h[k, 7:9] = scalars[idx]
-                scrolled[k] = scr
-            fence, fence_on = self._fence_args(plan[0][0])
-            start_origin = self._origin.copy()
-            if sensor_kind is None:
-                frames = {"points": data["points"][i:i + n],
-                          "pts_valid": data["pts_valid"][i:i + n]}
-            else:
-                frames = {"sensor_data": data["sensor_data"][i:i + n],
-                          "sensor_kind": sensor_kind}
-            self.state, out, changed_union, per_frame = replay_frames(
-                self.state, pose_h, scrolled, fence, cfg=cfg,
-                origin_blk=start_origin, input_pointcloud=input_pointcloud,
-                use_fence=fence_on, compact_cols=[c for *_, c in plan],
-                has_scrolls=bool(scrolled.any()), mesh=self.mesh, **frames)
-            last = plan[-1]
-            self._origin = np.asarray(last[1]).copy()
-            self._last_pvt = np.asarray(last[0]).copy()  # motion-bias anchor
-            self.map_ct += n
-            self.replay_scanned_frames += n
-            self.replay_scanned_scrolls += int(scrolled.sum())
-            result = FrameOutput(
-                out, origin=last[0].astype(np.float32) * cfg.voxel_width,
-                pvt=last[0])
-            result.per_frame = per_frame
-            dt = (time.perf_counter() - t0) * 1e3 / n
-            result.edt_time_ms = dt  # the run's dispatch time per frame
-            self.last_output = result
-            if cfg.display_glb_edt or cfg.display_glb_ogm:
-                # once per run, whatever vis_interval says
-                if self._stream_carry is not None:
-                    self._stream_carry = shift_block_mask(
-                        self._stream_carry,
-                        self._origin.astype(np.int64) - start_origin)
-                self._stream({"changed_blk": changed_union}, self._origin)
-            # arch_dropped is cumulative (the last frame covers the run);
-            # the sweep cap is checked on the run's largest sweep count
-            self._queue_capacity_guard(
-                per_frame["arch_dropped"][-1],
-                int(per_frame["relax_iters"].max())
-                if cfg.merge_mode == "relax" else None)
-            if self.logger is not None:  # a row per frame, no RMSE check
-                for _ in range(n):
-                    self.logger.log_frame(0.0, dt,
-                                          self.logger.take_pending_rmse(),
-                                          self._cap_dropped_seen,
-                                          self._last_leftover)
+            with profiler.span("frame", frame=self.map_ct + 1):
+                t0 = time.perf_counter()
+                n = len(plan)
+                pose_h = np.zeros((n, 9, 3), np.float32)
+                scrolled = np.zeros(n, bool)
+                for k, (pvt, origin_blk, off, scr, idx, _) in enumerate(plan):
+                    pose_h[k, 0], pose_h[k, 1], pose_h[k, 2] = pvt, origin_blk, off
+                    pose_h[k, 3:6] = projs[idx].rot.cpu().numpy()
+                    pose_h[k, 6] = projs[idx].trans.cpu().numpy()
+                    if scalars is not None:
+                        pose_h[k, 7:9] = scalars[idx]
+                    scrolled[k] = scr
+                fence, fence_on = self._fence_args(plan[0][0])
+                start_origin = self._origin.copy()
+                if sensor_kind is None:
+                    frames = {"points": data["points"][i:i + n],
+                              "pts_valid": data["pts_valid"][i:i + n]}
+                else:
+                    frames = {"sensor_data": data["sensor_data"][i:i + n],
+                              "sensor_kind": sensor_kind}
+                self.state, out, changed_union, per_frame = replay_frames(
+                    self.state, pose_h, scrolled, fence, cfg=cfg,
+                    origin_blk=start_origin, input_pointcloud=input_pointcloud,
+                    use_fence=fence_on, compact_cols=[c for *_, c in plan],
+                    has_scrolls=bool(scrolled.any()), mesh=self.mesh, **frames)
+                last = plan[-1]
+                self._origin = np.asarray(last[1]).copy()
+                self._last_pvt = np.asarray(last[0]).copy()  # motion-bias anchor
+                self.map_ct += n
+                self.replay_scanned_frames += n
+                self.replay_scanned_scrolls += int(scrolled.sum())
+                result = FrameOutput(
+                    out, origin=last[0].astype(np.float32) * cfg.voxel_width,
+                    pvt=last[0])
+                result.per_frame = per_frame
+                dt = (time.perf_counter() - t0) * 1e3 / n
+                result.edt_time_ms = dt  # the run's dispatch time per frame
+                self.last_output = result
+                if cfg.display_glb_edt or cfg.display_glb_ogm:
+                    # once per run, whatever vis_interval says
+                    if self._stream_carry is not None:
+                        self._stream_carry = shift_block_mask(
+                            self._stream_carry,
+                            self._origin.astype(np.int64) - start_origin)
+                    with profiler.span("stream"):
+                        self._stream({"changed_blk": changed_union},
+                                     self._origin)
+                # arch_dropped is cumulative (the last frame covers the run);
+                # the sweep cap is checked on the run's largest sweep count
+                self._queue_capacity_guard(
+                    per_frame["arch_dropped"][-1],
+                    int(per_frame["relax_iters"].max())
+                    if cfg.merge_mode == "relax" else None)
+                if self.logger is not None:  # a row per frame, no RMSE check
+                    for _ in range(n):
+                        self.logger.log_frame(0.0, dt,
+                                              self.logger.take_pending_rmse(),
+                                              self._cap_dropped_seen,
+                                              self._last_leftover)
             i += n
         return result

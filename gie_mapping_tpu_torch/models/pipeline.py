@@ -37,7 +37,6 @@ model and the block grids are replicated (on each process's home device).
 from __future__ import annotations
 
 import dataclasses
-import time
 
 import numpy as np
 import torch
@@ -57,6 +56,7 @@ from ..ops.wave import (invalidate_disappeared, mark_frontiers,
                         reconcile_window, relax_fixed_point)
 from ..parallel.mesh import (Sharded, all_reduce, block_reduce, crop,
                              parts_of, sbuild, smap, splice)
+from ..runtime import profiler
 from ..utils import constants as _c
 from ..utils import geometry as geo
 from ..utils.config import MapConfig
@@ -241,10 +241,10 @@ def _gate_readback(vec, mesh=None):
     int32 branch scalars (over a mesh max-reduced across the shards), as
     host ints, and the host ms it took, waiting for the device to reach it
     included."""
-    t0 = time.perf_counter()
-    vals = (all_reduce(mesh, vec, "max") if mesh is not None
-            else vec[0]).tolist()
-    return vals, (time.perf_counter() - t0) * 1e3
+    with profiler.timed("merge.gate_wait") as wait:
+        vals = (all_reduce(mesh, vec, "max") if mesh is not None
+                else vec[0]).tolist()
+    return vals, wait.ms
 
 
 def _alloc_blocks(present, observed, off, cfg: MapConfig):
@@ -358,157 +358,168 @@ def _gated_canvas_merge(state: MapState, canvas_type, new_type_win,
     off = [int(v) for v in win_off]
     es = [int(v) for v in enter_shift]
 
-    # ---- change set: occupancy flips + UNKNOWN transitions (window) -------
-    site_flip = (old_type_win == VOX_OCCUPIED) != (new_type_win == VOX_OCCUPIED)
-    unk_flip = (old_type_win == VOX_UNKNOWN) != (new_type_win == VOX_UNKNOWN)
-    chg = site_flip | unk_flip
-    flo, fhi = [], []
-    for a in range(3):
-        other = tuple(i for i in range(3) if i != a)
-        lo, hi = _axis_lohi(site_flip.any(dim=other))
-        flo.append(lo + off[a])
-        fhi.append(hi + off[a])
-    boxes = [(torch.stack(flo), torch.stack(fhi), ~site_flip.any())]
-    # entering and exiting slabs of this frame's canvas move (dead boxes on
-    # frames that do not move the canvas)
-    t3 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
-    for a in range(3):
-        s = es[a]
-        lo, hi = [0, 0, 0], [c - 1 for c in cs]
-        lo[a], hi[a] = (cs[a] - s, cs[a] - 1) if s > 0 else (0, -s - 1)
-        boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
-    for a in range(3):
-        s = es[a]
-        lo, hi = [0, 0, 0], [c - 1 for c in cs]
-        lo[a], hi[a] = (-s, -1) if s > 0 else (cs[a], cs[a] - s - 1)
-        boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
+    with profiler.span("merge.gate"):
+        # ---- change set: occupancy flips + UNKNOWN transitions (window) ------
+        site_flip = ((old_type_win == VOX_OCCUPIED)
+                     != (new_type_win == VOX_OCCUPIED))
+        unk_flip = ((old_type_win == VOX_UNKNOWN)
+                    != (new_type_win == VOX_UNKNOWN))
+        chg = site_flip | unk_flip
+        flo, fhi = [], []
+        for a in range(3):
+            other = tuple(i for i in range(3) if i != a)
+            lo, hi = _axis_lohi(site_flip.any(dim=other))
+            flo.append(lo + off[a])
+            fhi.append(hi + off[a])
+        boxes = [(torch.stack(flo), torch.stack(fhi), ~site_flip.any())]
+        # entering and exiting slabs of this frame's canvas move (dead boxes on
+        # frames that do not move the canvas)
+        t3 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+        for a in range(3):
+            s = es[a]
+            lo, hi = [0, 0, 0], [c - 1 for c in cs]
+            lo[a], hi[a] = (cs[a] - s, cs[a] - 1) if s > 0 else (0, -s - 1)
+            boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
+        for a in range(3):
+            s = es[a]
+            lo, hi = [0, 0, 0], [c - 1 for c in cs]
+            lo[a], hi[a] = (-s, -1) if s > 0 else (cs[a], cs[a] - s - 1)
+            boxes.append((t3(lo), t3(hi), t3(s == 0).bool()))
 
-    # ---- block P test on the per-cell dist bound ---------------------------
-    big = 1 << 30
-    G = 4
-    cgrid = tuple(c // G for c in cs)
-    cidx = [(torch.arange(n, dtype=torch.int32, device=dev) * G,
-             torch.arange(n, dtype=torch.int32, device=dev) * G + (G - 1))
-            for n in cgrid]
-    bd = None
-    for lo, hi, dead in boxes:
-        parts = []
-        for a, n in enumerate(cs):
-            ilo, ihi = cidx[a]
-            d = torch.clamp(torch.maximum(lo[a] - ihi, ilo - hi[a]), min=0)
-            d = torch.clamp(d, max=n)
-            parts.append(d * d)
-        b = parts[0][:, None, None] + parts[1][None, :, None] + parts[2][None, None, :]
-        b = torch.where(dead, big, b)
-        bd = b if bd is None else torch.minimum(bd, b)
-    p_cell = bd <= state.dmax_cell
-    if cfg.fast_mode:
-        ov = [((cidx[a][0] <= off[a] + local_size[a] - 1)
-               & (cidx[a][1] >= off[a])) for a in range(3)]
-        p_cell = p_cell & ov[0][:, None, None] & ov[1][None, :, None] \
-            & ov[2][None, None, :]
-    bx_lo, bx_hi = _axis_lohi(p_cell.any(2).any(1))
-    by_lo, by_hi = _axis_lohi(p_cell.any(2).any(0))
-    cx_lo, cx_hi = _axis_lohi(chg.any(2).any(1))
-    cy_lo, cy_hi = _axis_lohi(chg.any(2).any(0))
-    x0 = torch.minimum(bx_lo * G, cx_lo + off[0])
-    x1 = torch.maximum(bx_hi * G + (G - 1), cx_hi + off[0])
-    y0 = torch.minimum(by_lo * G, cy_lo + off[1])
-    y1 = torch.maximum(by_hi * G + (G - 1), cy_hi + off[1])
+        # ---- block P test on the per-cell dist bound -------------------------
+        big = 1 << 30
+        G = 4
+        cgrid = tuple(c // G for c in cs)
+        cidx = [(torch.arange(n, dtype=torch.int32, device=dev) * G,
+                 torch.arange(n, dtype=torch.int32, device=dev) * G + (G - 1))
+                for n in cgrid]
+        bd = None
+        for lo, hi, dead in boxes:
+            parts = []
+            for a, n in enumerate(cs):
+                ilo, ihi = cidx[a]
+                d = torch.clamp(torch.maximum(lo[a] - ihi, ilo - hi[a]), min=0)
+                d = torch.clamp(d, max=n)
+                parts.append(d * d)
+            b = (parts[0][:, None, None] + parts[1][None, :, None]
+                 + parts[2][None, None, :])
+            b = torch.where(dead, big, b)
+            bd = b if bd is None else torch.minimum(bd, b)
+        p_cell = bd <= state.dmax_cell
+        if cfg.fast_mode:
+            ov = [((cidx[a][0] <= off[a] + local_size[a] - 1)
+                   & (cidx[a][1] >= off[a])) for a in range(3)]
+            p_cell = p_cell & ov[0][:, None, None] & ov[1][None, :, None] \
+                & ov[2][None, None, :]
+        bx_lo, bx_hi = _axis_lohi(p_cell.any(2).any(1))
+        by_lo, by_hi = _axis_lohi(p_cell.any(2).any(0))
+        cx_lo, cx_hi = _axis_lohi(chg.any(2).any(1))
+        cy_lo, cy_hi = _axis_lohi(chg.any(2).any(0))
+        x0 = torch.minimum(bx_lo * G, cx_lo + off[0])
+        x1 = torch.maximum(bx_hi * G + (G - 1), cx_hi + off[0])
+        y0 = torch.minimum(by_lo * G, cy_lo + off[1])
+        y1 = torch.maximum(by_hi * G + (G - 1), cy_hi + off[1])
 
-    # ---- one readback: every host-side branch choice of this frame --------
-    # (over a mesh one all-reduce: each shard adds whether it holds a site
-    # before and after, so every shard and process takes the same branch)
-    vec = [torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
-                        (a == VOX_OCCUPIED).any().to(dev, torch.int32),
-                        (b == VOX_OCCUPIED).any().to(dev, torch.int32),
-                        state.p1c_ok.to(torch.int32)])
-           for a, b in zip(parts_of(canvas_type), parts_of(state.vox_type))]
+        # ---- one readback: every host-side branch choice of this frame -------
+        # (over a mesh one all-reduce: each shard adds whether it holds a site
+        # before and after, so every shard and process takes the same branch)
+        vec = [torch.stack([x0, x1, y0, y1, flo[0], fhi[0],
+                            (a == VOX_OCCUPIED).any().to(dev, torch.int32),
+                            (b == VOX_OCCUPIED).any().to(dev, torch.int32),
+                            state.p1c_ok.to(torch.int32)])
+               for a, b in zip(parts_of(canvas_type), parts_of(state.vox_type))]
     vals, sync_ms = _gate_readback(vec, canvas_type.mesh if sharded else None)
-    x0, x1, y0, y1, flo0, fhi0, any_new, any_old, p1c_ok = vals
-    need_x = max(x1 - x0 // 8 * 8 + 1, 0)
-    need_y = max(y1 - y0 // 8 * 8 + 1, 0)
-    sel = next((k for k, (sx, sy) in enumerate(menu)
-                if need_x <= sx and need_y <= sy), n_menu)
-    if not (any_new and any_old):
-        sel = n_menu  # zero-site epoch or its exit: full recompute
-    if not any_new:
-        sel = n_menu + 1  # no sites at all: constant fill
+    with profiler.span("merge.edt"):
+        x0, x1, y0, y1, flo0, fhi0, any_new, any_old, p1c_ok = vals
+        need_x = max(x1 - x0 // 8 * 8 + 1, 0)
+        need_y = max(y1 - y0 // 8 * 8 + 1, 0)
+        sel = next((k for k, (sx, sy) in enumerate(menu)
+                    if need_x <= sx and need_y <= sy), n_menu)
+        if not (any_new and any_old):
+            sel = n_menu  # zero-site epoch or its exit: full recompute
+        if not any_new:
+            sel = n_menu + 1  # no sites at all: constant fill
 
-    # ---- phase-1 cache: patch the site-flip x-slab, or rebuild -----------
-    use_p1c = p1_cache_enabled(cfg, mesh)
-    p1c_new = state.p1c
-    mw = sum(cs)
-    if use_p1c:
-        fx_menu = [sx for sx, _ in menu]
-        pneed = max(fhi0 - flo0 // 8 * 8 + 1, 0)
-        psel = next((k for k, fx in enumerate(fx_menu) if pneed <= fx),
-                    len(fx_menu))
-        if not p1c_ok:
-            psel = len(fx_menu)
-        if psel < len(fx_menu):
-            FX = fx_menu[psel]
-            o = _clip(flo0 // 8 * 8, 0, X - FX)
-            p1c_new = state.p1c.clone()
-            phase1_packed(canvas_type[o:o + FX], mw, out=p1c_new[o:o + FX])
-        else:
-            p1c_new = phase1_packed(canvas_type, mw)
+        # ---- phase-1 cache: patch the site-flip x-slab, or rebuild -----------
+        use_p1c = p1_cache_enabled(cfg, mesh)
+        p1c_new = state.p1c
+        mw = sum(cs)
+        if use_p1c:
+            fx_menu = [sx for sx, _ in menu]
+            pneed = max(fhi0 - flo0 // 8 * 8 + 1, 0)
+            psel = next((k for k, fx in enumerate(fx_menu) if pneed <= fx),
+                        len(fx_menu))
+            if not p1c_ok:
+                psel = len(fx_menu)
+            if psel < len(fx_menu):
+                FX = fx_menu[psel]
+                o = _clip(flo0 // 8 * 8, 0, X - FX)
+                p1c_new = state.p1c.clone()
+                phase1_packed(canvas_type[o:o + FX], mw, out=p1c_new[o:o + FX])
+            else:
+                p1c_new = phase1_packed(canvas_type, mw)
 
-    # ---- the chosen branch -------------------------------------------------
-    p1 = p1c_new if use_p1c else None
-    if sel < n_menu:
-        SX, SY = menu[sel]
-        ox = _clip(x0 // 8 * 8, 0, X - SX)
-        oy = _clip(y0 // 8 * 8, 0, Y - SY)
-        box = _box((ox, oy, 0), (SX, SY, Z))
-        if sharded:
-            slab = batch_edt_sharded_slab(canvas_type, oy, sy=SY,
-                                          max_width=mw, mesh=mesh)
+        # ---- the chosen branch -----------------------------------------------
+        p1 = p1c_new if use_p1c else None
+        if sel < n_menu:
+            SX, SY = menu[sel]
+            ox = _clip(x0 // 8 * 8, 0, X - SX)
+            oy = _clip(y0 // 8 * 8, 0, Y - SY)
+            box = _box((ox, oy, 0), (SX, SY, Z))
+            if sharded:
+                slab = batch_edt_sharded_slab(canvas_type, oy, sy=SY,
+                                              max_width=mw, mesh=mesh)
+            else:
+                slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY,
+                                      max_width=mw, p1_packed=p1)
+            win_s = _in_box(window_mask, box)
+            dist_state_s = _in_box(state.dist_sq, box)
+            coc_state_s = _in_box(state.coc, box)
+            obs_s = smap(lambda t: t != VOX_UNKNOWN, _in_box(canvas_type, box))
+            pres_s = _expanded(win_s, present_blk[ox // 8:ox // 8 + SX // 8,
+                                                  oy // 8:oy // 8 + SY // 8, :])
+            fin_d, fin_c, _, _ = _finalize_parts(cfg, dist_state_s, coc_state_s,
+                                                 slab, obs_s, pres_s, win_s)
+            final_dist = _with_box(state.dist_sq, box, fin_d)
+            final_coc = _with_box(state.coc, box, fin_c)
+            changed = torch.zeros(cfg.canvas_blocks, dtype=torch.bool,
+                                  device=dev)
+            changed[ox // 8:ox // 8 + SX // 8, oy // 8:oy // 8 + SY // 8] = \
+                block_reduce(smap(torch.ne, fin_d, dist_state_s), 8, "any",
+                             False)
+            dm_s = block_reduce(smap(lambda o, f: torch.where(o, f, -1), obs_s,
+                                     fin_d), 4, "max", -1)
+            dmax_new = state.dmax_cell.clone()
+            dmax_new[ox // 4:ox // 4 + SX // 4,
+                     oy // 4:oy // 4 + SY // 4] = dm_s
+            wb = _box(off, local_size)
+            dist_win, coc_win = crop(final_dist, wb), crop(final_coc, wb)
+            slab_vox = SX * SY * Z
         else:
-            slab = batch_edt_slab(canvas_type, ox, oy, sx=SX, sy=SY,
-                                  max_width=mw, p1_packed=p1)
-        win_s = _in_box(window_mask, box)
-        dist_state_s = _in_box(state.dist_sq, box)
-        coc_state_s = _in_box(state.coc, box)
-        obs_s = smap(lambda t: t != VOX_UNKNOWN, _in_box(canvas_type, box))
-        pres_s = _expanded(win_s, present_blk[ox // 8:ox // 8 + SX // 8,
-                                              oy // 8:oy // 8 + SY // 8, :])
-        fin_d, fin_c, _, _ = _finalize_parts(cfg, dist_state_s, coc_state_s,
-                                             slab, obs_s, pres_s, win_s)
-        final_dist = _with_box(state.dist_sq, box, fin_d)
-        final_coc = _with_box(state.coc, box, fin_c)
-        changed = torch.zeros(cfg.canvas_blocks, dtype=torch.bool, device=dev)
-        changed[ox // 8:ox // 8 + SX // 8, oy // 8:oy // 8 + SY // 8] = \
-            block_reduce(smap(torch.ne, fin_d, dist_state_s), 8, "any", False)
-        dm_s = block_reduce(smap(lambda o, f: torch.where(o, f, -1), obs_s,
-                                 fin_d), 4, "max", -1)
-        dmax_new = state.dmax_cell.clone()
-        dmax_new[ox // 4:ox // 4 + SX // 4, oy // 4:oy // 4 + SY // 4] = dm_s
-        wb = _box(off, local_size)
-        dist_win, coc_win = crop(final_dist, wb), crop(final_coc, wb)
-        slab_vox = SX * SY * Z
-    else:
-        zero_site = sel == n_menu + 1
-        if zero_site:
-            zeros = lambda dt, tail=(): sbuild(canvas_type, lambda lo, hi, d:
-                torch.zeros((hi - lo,) + cs[1:] + tail, dtype=dt, device=d))
-            full = {"valid": zeros(torch.bool), "dist_sq": zeros(torch.int32),
-                    "coc": zeros(torch.int32, (3,))}
-        elif sharded:
-            full = batch_edt_sharded(canvas_type, mw, mesh)
-        else:
-            full = batch_edt(canvas_type, mw, p1_packed=p1)
-        obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
-        final_dist, final_coc, dist_pre, coc_pre = _finalize_parts(
-            cfg, state.dist_sq, state.coc, full, obs,
-            _expanded(canvas_type, present_blk), window_mask)
-        changed = block_reduce(smap(torch.ne, final_dist, state.dist_sq), 8,
-                               "any", False)
-        dmax_new = block_reduce(smap(lambda o, f: torch.where(o, f, -1), obs,
-                                     final_dist), 4, "max", -1)
-        wb = _box(off, local_size)
-        dist_win, coc_win = crop(dist_pre, wb), crop(coc_pre, wb)
-        slab_vox = 0 if zero_site else X * Y * Z
+            zero_site = sel == n_menu + 1
+            if zero_site:
+                zeros = lambda dt, tail=(): sbuild(
+                    canvas_type, lambda lo, hi, d: torch.zeros(
+                        (hi - lo,) + cs[1:] + tail, dtype=dt, device=d))
+                full = {"valid": zeros(torch.bool),
+                        "dist_sq": zeros(torch.int32),
+                        "coc": zeros(torch.int32, (3,))}
+            elif sharded:
+                full = batch_edt_sharded(canvas_type, mw, mesh)
+            else:
+                full = batch_edt(canvas_type, mw, p1_packed=p1)
+            obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
+            final_dist, final_coc, dist_pre, coc_pre = _finalize_parts(
+                cfg, state.dist_sq, state.coc, full, obs,
+                _expanded(canvas_type, present_blk), window_mask)
+            changed = block_reduce(smap(torch.ne, final_dist, state.dist_sq), 8,
+                                   "any", False)
+            dmax_new = block_reduce(smap(lambda o, f: torch.where(o, f, -1),
+                                         obs, final_dist), 4, "max", -1)
+            wb = _box(off, local_size)
+            dist_win, coc_win = crop(dist_pre, wb), crop(coc_pre, wb)
+            slab_vox = 0 if zero_site else X * Y * Z
+    profiler.count("gate.slab_vox", slab_vox)
     return (final_dist, final_coc, dist_win, coc_win, changed, sel, slab_vox,
             dmax_new, p1c_new, sync_ms)
 
@@ -544,6 +555,19 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
     ogm_changed) are not built, and the state is the same.  mesh: the
     parallel.mesh.Mesh the state is placed on (shard_state); every stage
     runs on the shards (module docstring)."""
+    with profiler.span("merge"):
+        return _merge_frame(state, inst_type, ray_count, pvt,
+                            canvas_origin_blk, win_off, fence, cfg,
+                            input_pointcloud, use_fence, enter_shift,
+                            emit_outputs, mesh)
+
+
+def _merge_frame(state: MapState, inst_type, ray_count, pvt,
+                 canvas_origin_blk, win_off, fence, cfg: MapConfig,
+                 input_pointcloud: bool, use_fence: bool, enter_shift,
+                 emit_outputs: bool, mesh):
+    """merge_frame's body, its stages in spans: merge.fuse, the gate's
+    (merge.gate, merge.gate_wait, merge.edt) or merge.edt, merge.tail."""
     local_size = cfg.local_size
     cb = cfg.canvas_blocks
     cs = cfg.canvas_size
@@ -557,16 +581,19 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
 
     old_dist = state.dist_sq
     old_type = state.vox_type
-    observed = (ray_count != 0) if input_pointcloud else (inst_type != VOX_UNKNOWN)
 
     # ---- block allocation, occupancy fusion --------------------------------
-    present, present_vox_win = _alloc_blocks(state.present, observed, off, cfg)
-    old_occ_win, old_type_win, new_occ_win, new_type_win, glb_type = \
-        _fuse_window(state, inst_type, ray_count, pvt, fence, present_vox_win,
-                     wb, cfg, input_pointcloud, use_fence)
-    canvas_occ = splice(state.occ_val, wb, new_occ_win)
-    canvas_type = splice(state.vox_type, wb, new_type_win)
-    window_mask = _window_mask(state.vox_type, wb)
+    with profiler.span("merge.fuse"):
+        observed = ((ray_count != 0) if input_pointcloud
+                    else (inst_type != VOX_UNKNOWN))
+        present, present_vox_win = _alloc_blocks(state.present, observed, off,
+                                                 cfg)
+        old_occ_win, old_type_win, new_occ_win, new_type_win, glb_type = \
+            _fuse_window(state, inst_type, ray_count, pvt, fence,
+                         present_vox_win, wb, cfg, input_pointcloud, use_fence)
+        canvas_occ = splice(state.occ_val, wb, new_occ_win)
+        canvas_type = splice(state.vox_type, wb, new_type_win)
+        window_mask = _window_mask(state.vox_type, wb)
 
     gated = gate_enabled(cfg, mesh)
     relax_iters = 0
@@ -576,117 +603,127 @@ def merge_frame(state: MapState, inst_type, ray_count, pvt, canvas_origin_blk,
          slab_vox, dmax_new, p1c_new, sync_ms) = _gated_canvas_merge(
             state, canvas_type, new_type_win, old_type_win, off, window_mask,
             present, es, cfg, mesh)
-    elif cfg.merge_mode == "canvas_edt":
-        # one exact EDT over the whole canvas, then the same keep-old / take
-        full = _canvas_edt(canvas_type, sum(cs), mesh)
-        obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
-        final_dist, final_coc, dist, coc = _finalize_parts(
-            cfg, state.dist_sq, state.coc, full, obs,
-            _expanded(canvas_type, present), window_mask)
-        dist_win, coc_win = crop(dist, wb), crop(coc, wb)
     else:
-        # the relax engine: the window's batch EDT reconciled with the
-        # stored canvas, the raise wave (fast_mode off), then the lower
-        # fixed point over the canvas
-        outside_observed = smap(lambda t, w: (t != VOX_UNKNOWN) & ~w,
-                                canvas_type, window_mask)
-        batch = batch_edt(glb_type, cfg.max_width)
-        seed_dist, seed_coc = reconcile_window(
-            batch, crop(state.dist_sq, wb), crop(state.coc, wb), glb_type, off,
-            local_size)
-        dist = splice(state.dist_sq, wb, seed_dist)
-        coc = splice(state.coc, wb, seed_coc)
-        raised = None
-        if not cfg.fast_mode:
-            dead_win = ((old_type_win == VOX_OCCUPIED)
-                        & (glb_type != VOX_OCCUPIED) & (glb_type != VOX_UNKNOWN))
-            dist, coc, raised = invalidate_disappeared(
-                dist, coc, outside_observed, state.coc, dead_win, off,
-                max_sweeps=cfg.relax_iters)
-        can_update = window_mask if cfg.fast_mode else smap(
-            torch.logical_or, window_mask, outside_observed)
-        dist, coc, relax_iters = relax_fixed_point(
-            dist, coc, can_update, outside_observed, window_mask,
-            cutoff_sq=cfg.cutoff_grids_sq, max_iters=cfg.relax_iters)
-        # copies: the write-back below splices into dist and coc in place
-        dist_win, coc_win = crop(dist, wb).clone(), crop(coc, wb).clone()
+        with profiler.span("merge.edt"):
+            if cfg.merge_mode == "canvas_edt":
+                # one exact EDT over the whole canvas, then the same
+                # keep-old / take
+                full = _canvas_edt(canvas_type, sum(cs), mesh)
+                obs = smap(lambda t: t != VOX_UNKNOWN, canvas_type)
+                final_dist, final_coc, dist, coc = _finalize_parts(
+                    cfg, state.dist_sq, state.coc, full, obs,
+                    _expanded(canvas_type, present), window_mask)
+                dist_win, coc_win = crop(dist, wb), crop(coc, wb)
+            else:
+                # the relax engine: the window's batch EDT reconciled with
+                # the stored canvas, the raise wave (fast_mode off), then
+                # the lower fixed point over the canvas
+                outside_observed = smap(lambda t, w: (t != VOX_UNKNOWN) & ~w,
+                                        canvas_type, window_mask)
+                batch = batch_edt(glb_type, cfg.max_width)
+                seed_dist, seed_coc = reconcile_window(
+                    batch, crop(state.dist_sq, wb), crop(state.coc, wb),
+                    glb_type, off, local_size)
+                dist = splice(state.dist_sq, wb, seed_dist)
+                coc = splice(state.coc, wb, seed_coc)
+                raised = None
+                if not cfg.fast_mode:
+                    dead_win = ((old_type_win == VOX_OCCUPIED)
+                                & (glb_type != VOX_OCCUPIED)
+                                & (glb_type != VOX_UNKNOWN))
+                    dist, coc, raised = invalidate_disappeared(
+                        dist, coc, outside_observed, state.coc, dead_win, off,
+                        max_sweeps=cfg.relax_iters)
+                can_update = window_mask if cfg.fast_mode else smap(
+                    torch.logical_or, window_mask, outside_observed)
+                dist, coc, relax_iters = relax_fixed_point(
+                    dist, coc, can_update, outside_observed, window_mask,
+                    cutoff_sq=cfg.cutoff_grids_sq, max_iters=cfg.relax_iters)
+                # copies: the write-back below splices into dist and coc
+                # in place
+                dist_win = crop(dist, wb).clone()
+                coc_win = crop(coc, wb).clone()
 
-    # ---- frontiers -----------------------------------------------------------
-    fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
+    with profiler.span("merge.tail"):
+        # ---- frontiers -------------------------------------------------------
+        fnt = mark_frontiers(canvas_type, glb_type, off, local_size)
 
-    pair_valid = dist_win != EMPTY_VALUE
-    observed_win = glb_type != VOX_UNKNOWN
-    writeback = observed_win & pair_valid
-    vt_win = torch.where(fnt & writeback, VOX_FNT, new_type_win).to(torch.int8)
-    canvas_type = splice(canvas_type, wb, vt_win, inplace=True)
-    if cfg.merge_mode == "relax":
-        # pair-invalid window voxels keep the OLD stored value, except where
-        # the raise wave reached them (the reference's wave mutates the
-        # stored map in place, so they stay raised)
-        old_dist_win, old_coc_win = crop(state.dist_sq, wb), crop(state.coc, wb)
-        if raised is not None:
-            rw = crop(raised, wb)
-            old_dist_win = torch.where(rw, EMPTY_VALUE, old_dist_win)
-            old_coc_win = torch.where(rw[..., None], INV16, old_coc_win)
-        final_dist = splice(dist, wb, torch.where(writeback, dist_win,
-                                                  old_dist_win), inplace=True)
-        final_coc = splice(coc, wb, torch.where(writeback[..., None], coc_win,
-                                                old_coc_win), inplace=True)
+        pair_valid = dist_win != EMPTY_VALUE
+        observed_win = glb_type != VOX_UNKNOWN
+        writeback = observed_win & pair_valid
+        vt_win = torch.where(fnt & writeback, VOX_FNT,
+                             new_type_win).to(torch.int8)
+        canvas_type = splice(canvas_type, wb, vt_win, inplace=True)
+        if cfg.merge_mode == "relax":
+            # pair-invalid window voxels keep the OLD stored value, except
+            # where the raise wave reached them (the reference's wave
+            # mutates the stored map in place, so they stay raised)
+            old_dist_win = crop(state.dist_sq, wb)
+            old_coc_win = crop(state.coc, wb)
+            if raised is not None:
+                rw = crop(raised, wb)
+                old_dist_win = torch.where(rw, EMPTY_VALUE, old_dist_win)
+                old_coc_win = torch.where(rw[..., None], INV16, old_coc_win)
+            final_dist = splice(dist, wb, torch.where(
+                writeback, dist_win, old_dist_win), inplace=True)
+            final_coc = splice(coc, wb, torch.where(
+                writeback[..., None], coc_win, old_coc_win), inplace=True)
 
-    # ---- changed-block tracking --------------------------------------------
-    occ_changed_win = new_occ_win != old_occ_win
-    if gated:
-        changed_blk = _changed_blocks(
-            present, changed_blk_d, (vt_win != old_type_win) | occ_changed_win,
-            off, enter_shift, cb)
-    else:
-        changed_vox = smap(lambda fd, od, ct, ot: (fd != od) | (ct != ot),
-                           final_dist, old_dist, canvas_type, old_type)
-        changed_blk = _changed_blocks(
-            present, block_reduce(changed_vox, VB_WIDTH, "any", False),
-            occ_changed_win, off, enter_shift, cb)
+        # ---- changed-block tracking ------------------------------------------
+        occ_changed_win = new_occ_win != old_occ_win
+        if gated:
+            changed_blk = _changed_blocks(
+                present, changed_blk_d,
+                (vt_win != old_type_win) | occ_changed_win, off, enter_shift,
+                cb)
+        else:
+            changed_vox = smap(lambda fd, od, ct, ot: (fd != od) | (ct != ot),
+                               final_dist, old_dist, canvas_type, old_type)
+            changed_blk = _changed_blocks(
+                present, block_reduce(changed_vox, VB_WIDTH, "any", False),
+                occ_changed_win, off, enter_shift, cb)
 
-    state = dataclasses.replace(
-        state, occ_val=canvas_occ, vox_type=canvas_type, dist_sq=final_dist,
-        coc=final_coc, present=present,
-        dmax_cell=(dmax_new if gated else torch.full(
-            tuple(c // 4 for c in cs), EMPTY_VALUE, dtype=torch.int32,
-            device=dev)),
-        p1c=p1c_new if gated else state.p1c,
-        p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg, mesh),
-                            device=dev),
-    )
+        state = dataclasses.replace(
+            state, occ_val=canvas_occ, vox_type=canvas_type, dist_sq=final_dist,
+            coc=final_coc, present=present,
+            dmax_cell=(dmax_new if gated else torch.full(
+                tuple(c // 4 for c in cs), EMPTY_VALUE, dtype=torch.int32,
+                device=dev)),
+            p1c=p1c_new if gated else state.p1c,
+            p1c_ok=torch.tensor(gated and p1_cache_enabled(cfg, mesh),
+                                device=dev),
+        )
 
-    outputs = {
-        "changed_blk": changed_blk,
-        "relax_iters": relax_iters,
-        "arch_dropped": state.arch_dropped,
-        "fnt_count": fnt.sum(dtype=torch.int32),
-        "gate_level": gate_level if gated else -1,
-        "gate_slab_vox": slab_vox if gated else cs[0] * cs[1] * cs[2],
-    }
-    if not emit_outputs:
+        outputs = {
+            "changed_blk": changed_blk,
+            "relax_iters": relax_iters,
+            "arch_dropped": state.arch_dropped,
+            "fnt_count": fnt.sum(dtype=torch.int32),
+            "gate_level": gate_level if gated else -1,
+            "gate_slab_vox": slab_vox if gated else cs[0] * cs[1] * cs[2],
+        }
+        if not emit_outputs:
+            return state, outputs
+        canvas_origin_vox = torch.tensor(
+            np.asarray(canvas_origin_blk, np.int64) * VB_WIDTH,
+            dtype=torch.int32, device=dev)
+        outputs.update({
+            # host ms spent in the gate's one readback (waiting for the device
+            # to reach it included); 0.0 when the gate is off
+            "gate_sync_ms": sync_ms if gated else 0.0,
+            "edt": torch.where(
+                observed_win,
+                torch.where(pair_valid, sqrt_f32(dist_win.to(torch.float32)),
+                            float(cfg.max_loc_dist_sq)),
+                0.0),
+            "glb_type": torch.where(fnt, VOX_FNT, glb_type).to(torch.int8),
+            "dist_sq": torch.where(observed_win, dist_win, EMPTY_VALUE),
+            "coc": torch.where(
+                (observed_win & (coc_win[..., 0] != INV16))[..., None],
+                coc_win.to(torch.int32) + canvas_origin_vox, INV16),
+            "ogm_changed": present_vox_win & (new_type_win != old_type_win),
+        })
         return state, outputs
-    canvas_origin_vox = torch.tensor(
-        np.asarray(canvas_origin_blk, np.int64) * VB_WIDTH, dtype=torch.int32,
-        device=dev)
-    outputs.update({
-        # host ms spent in the gate's one readback (waiting for the device
-        # to reach it included); 0.0 when the gate is off
-        "gate_sync_ms": sync_ms if gated else 0.0,
-        "edt": torch.where(
-            observed_win,
-            torch.where(pair_valid, sqrt_f32(dist_win.to(torch.float32)),
-                        float(cfg.max_loc_dist_sq)),
-            0.0),
-        "glb_type": torch.where(fnt, VOX_FNT, glb_type).to(torch.int8),
-        "dist_sq": torch.where(observed_win, dist_win, EMPTY_VALUE),
-        "coc": torch.where(
-            (observed_win & (coc_win[..., 0] != INV16))[..., None],
-            coc_win.to(torch.int32) + canvas_origin_vox, INV16),
-        "ogm_changed": present_vox_win & (new_type_win != old_type_win),
-    })
-    return state, outputs
 
 
 def scroll_step(state: MapState, new_origin_blk, *, cfg: MapConfig,

@@ -128,12 +128,15 @@ def build() -> tuple[Path, float]:
 @functools.lru_cache(maxsize=1)
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first call)."""
-    so, _ = build()
-    lib = ctypes.CDLL(str(so))
-    for name, args in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = list(args)
-        fn.restype = ctypes.c_int
+    from ...runtime import profiler
+
+    with profiler.span("kernels.library"):
+        so, _ = build()
+        lib = ctypes.CDLL(str(so))
+        for name, args in SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = list(args)
+            fn.restype = ctypes.c_int
     return lib
 
 

@@ -18,6 +18,7 @@ from ..map_state import (COC_INVALID16, _dense_to_blocks, _rows3,
 from ..parallel.mesh import Sharded, gather, to_numpy
 from ..utils.config import MapConfig
 from ..utils.constants import EMPTY_VALUE, VB_WIDTH, VOX_OCCUPIED
+from . import profiler
 
 MIRROR_FIELDS = ("occ_val", "vox_type", "dist_sq", "coc")
 
@@ -88,28 +89,33 @@ class HostMirror:
         """Merge pre-extracted packed block-column rows (stream_extract's
         outputs as numpy; rows uint32 [k * cbz, 512, 3]): pure host
         bookkeeping, the device work and the copy happened earlier."""
-        cb = self.cfg.canvas_blocks
-        cbz = cb[2]
-        occ, typ, dist, coc = np_unpack_voxels(np.asarray(rows))
-        W = VB_WIDTH
-        n = 0
-        origin = np.asarray(origin_blk, np.int32)
-        for k in np.flatnonzero(np.asarray(col_valid)):
-            col = int(col_ids[k])
-            bx, by = col // cb[1], col % cb[1]
-            for j in np.flatnonzero(np.asarray(blk_mask[k])):
-                r = k * cbz + int(j)
-                key = (int(origin[0] + bx), int(origin[1] + by),
-                       int(origin[2] + j))
-                self.blocks[key] = {
-                    "occ_val": occ[r].reshape(W, W, W),
-                    "vox_type": typ[r].reshape(W, W, W),
-                    "dist_sq": dist[r].reshape(W, W, W),
-                    # streamed rows carry canvas-relative cocs
-                    "coc": _coc_to_global(coc[r].reshape(W, W, W, 3),
-                                          origin * 8),
-                }
-                n += 1
+        with profiler.span("stream.ingest"):
+            cb = self.cfg.canvas_blocks
+            cbz = cb[2]
+            with profiler.span("stream.unpack"):
+                occ, typ, dist, coc = np_unpack_voxels(np.asarray(rows))
+            W = VB_WIDTH
+            n = 0
+            origin = np.asarray(origin_blk, np.int32)
+            cols = np.flatnonzero(np.asarray(col_valid))
+            for k in cols:
+                col = int(col_ids[k])
+                bx, by = col // cb[1], col % cb[1]
+                for j in np.flatnonzero(np.asarray(blk_mask[k])):
+                    r = k * cbz + int(j)
+                    key = (int(origin[0] + bx), int(origin[1] + by),
+                           int(origin[2] + j))
+                    self.blocks[key] = {
+                        "occ_val": occ[r].reshape(W, W, W),
+                        "vox_type": typ[r].reshape(W, W, W),
+                        "dist_sq": dist[r].reshape(W, W, W),
+                        # streamed rows carry canvas-relative cocs
+                        "coc": _coc_to_global(coc[r].reshape(W, W, W, 3),
+                                              origin * 8),
+                    }
+                    n += 1
+            profiler.count("stream.rows", len(cols) * cbz)
+            profiler.count("stream.blocks", n)
         return n
 
     def ingest_archive(self, state):

@@ -303,25 +303,55 @@ def _jax_mirror_digest(mirror):
     return mirror_digest(mirror.blocks)
 
 
-def test_stage_timer_and_trace(tmp_path):
-    """StageTimer's summary (the JAX package's keys) and the torch.profiler
-    trace writer, on the CPU."""
-    from gie_mapping_tpu_torch.runtime.profiler import StageTimer, torch_trace
+def test_stage_timer_and_trace(tmp_path, monkeypatch):
+    """The span API (span / count / take, enable / disable, the cap and its
+    `trace.dropped` counter) and the torch.profiler trace writer, which
+    shows the spans, on the CPU."""
+    import collections
 
-    t = StageTimer()
+    from gie_mapping_tpu_torch.runtime import profiler
+
+    assert not profiler.enabled()
     x = torch.arange(1000, dtype=torch.float32)
-    for _ in range(5):
-        with t.stage("sum", sync_on=x):
-            x.sum()
-    with t.stage("idle"):
+    with profiler.span("idle"):
+        profiler.count("n", 1)
+    assert profiler.take() == ([], [])
+    profiler.enable(ranges=False)
+    with profiler.span("frame", frame=3):
+        for _ in range(2):
+            with profiler.span("sum"):
+                x.sum()
+        profiler.count("n", 5)
+    with profiler.timed("wait") as w:
         pass
-    summ = t.summary()
-    assert set(summ) == {"sum", "idle"} and summ["sum"]["n"] == 5
-    assert set(summ["sum"]) == {"median_ms", "p90_ms", "n"}
-    with torch_trace(str(tmp_path / "trace"), device="cpu") as prof:
-        (x * 2).sum()
-    assert prof is not None
-    assert (tmp_path / "trace" / "trace.json").stat().st_size > 0
+    profiler.disable()
+    spans, counters = profiler.take()
+    assert [(s[0], s[3], s[4]) for s in spans] == [
+        ("sum", "frame", 3), ("sum", "frame", 3), ("frame", None, 3),
+        ("wait", None, None)]
+    assert w.ms == (spans[-1][2] - spans[-1][1]) / 1e6
+    assert [c[:3] for c in counters] == [("n", 5, 3)]
+    with profiler.timed("wait") as w:   # off: timed, not recorded
+        pass
+    assert w.ms >= 0 and profiler.take() == ([], [])
+
+    monkeypatch.setattr(profiler, "CAP", 4)
+    monkeypatch.setattr(profiler, "_records", collections.deque(maxlen=4))
+    profiler.enable()
+    for i in range(6):
+        profiler.count("i", i)
+    profiler.disable()
+    _, counters = profiler.take()
+    assert [c[:2] for c in counters] == [("i", 2), ("i", 3), ("i", 4),
+                                         ("i", 5), ("trace.dropped", 2)]
+
+    with profiler.torch_trace(str(tmp_path / "trace"), device="cpu") as prof:
+        with profiler.span("double"):
+            (x * 2).sum()
+    assert prof is not None and not profiler.enabled()
+    assert [s[0] for s in profiler.take()[0]] == ["double"]
+    text = (tmp_path / "trace" / "trace.json").read_text()
+    assert "gie/double" in text
 
 
 def test_rosbag_main_lists_and_converts(tmp_path, capsys):
