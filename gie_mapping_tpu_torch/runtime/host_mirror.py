@@ -5,6 +5,9 @@ JAX module imports its JAX map state).  Changed blocks are compacted on the
 device (map_state.stream_extract) and copied into a host dict keyed by
 global block coordinates; mirror blocks hold GLOBAL int32 cocs, converted at
 ingest from the device's canvas-relative / block-relative int16 anchors.
+A streamed tick's ingest unpacks only the rows it serves (the changed blocks
+of valid columns), so its host work follows the blocks that changed, not the
+rows handed over.
 """
 from __future__ import annotations
 
@@ -87,35 +90,34 @@ class HostMirror:
 
     def ingest_rows(self, col_ids, col_valid, rows, blk_mask, origin_blk):
         """Merge pre-extracted packed block-column rows (stream_extract's
-        outputs as numpy; rows uint32 [k * cbz, 512, 3]): pure host
-        bookkeeping, the device work and the copy happened earlier."""
+        outputs as numpy; rows uint32 [k * cbz, 512, 3], row k * cbz + j
+        holding block j of column k): pure host bookkeeping, the device work
+        and the copy happened earlier.  Only the served rows (blk_mask in a
+        valid column) are gathered and unpacked."""
         with profiler.span("stream.ingest"):
             cb = self.cfg.canvas_blocks
             cbz = cb[2]
-            with profiler.span("stream.unpack"):
-                occ, typ, dist, coc = np_unpack_voxels(np.asarray(rows))
-            W = VB_WIDTH
-            n = 0
-            origin = np.asarray(origin_blk, np.int32)
-            cols = np.flatnonzero(np.asarray(col_valid))
-            for k in cols:
-                col = int(col_ids[k])
-                bx, by = col // cb[1], col % cb[1]
-                for j in np.flatnonzero(np.asarray(blk_mask[k])):
-                    r = k * cbz + int(j)
-                    key = (int(origin[0] + bx), int(origin[1] + by),
-                           int(origin[2] + j))
-                    self.blocks[key] = {
-                        "occ_val": occ[r].reshape(W, W, W),
-                        "vox_type": typ[r].reshape(W, W, W),
-                        "dist_sq": dist[r].reshape(W, W, W),
-                        # streamed rows carry canvas-relative cocs
-                        "coc": _coc_to_global(coc[r].reshape(W, W, W, 3),
-                                              origin * 8),
-                    }
-                    n += 1
-            profiler.count("stream.rows", len(cols) * cbz)
+            col_valid = np.asarray(col_valid)
+            sel = np.flatnonzero(
+                (np.asarray(blk_mask) & col_valid[:, None]).reshape(-1))
+            n = len(sel)
+            profiler.count("stream.rows", int(col_valid.sum()) * cbz)
             profiler.count("stream.blocks", n)
+            with profiler.span("stream.unpack"):
+                if n == 0:
+                    return 0
+                occ, typ, dist, coc = np_unpack_voxels(np.asarray(rows)[sel])
+            W = VB_WIDTH
+            shp = (n, W, W, W)
+            occ, typ, dist = occ.reshape(shp), typ.reshape(shp), dist.reshape(shp)
+            origin = np.asarray(origin_blk, np.int32)
+            # streamed rows carry canvas-relative cocs
+            coc = _coc_to_global(coc.reshape(shp + (3,)), origin * 8)
+            col = np.asarray(col_ids)[sel // cbz]
+            keys = origin + np.stack([col // cb[1], col % cb[1], sel % cbz], -1)
+            for i, key in enumerate(map(tuple, keys.tolist())):
+                self.blocks[key] = {"occ_val": occ[i], "vox_type": typ[i],
+                                    "dist_sq": dist[i], "coc": coc[i]}
         return n
 
     def ingest_archive(self, state):
